@@ -1,0 +1,206 @@
+"""The port's slice end to end: the slab-sweep frame against the JAX
+reference, the device rule of its entry points, and its independence
+from JAX.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from ray_tracing_octrees_tpu.core.grid import make_sphere_grid
+from ray_tracing_octrees_tpu.render.camera import Camera
+from ray_tracing_octrees_tpu.trace import slab_sweep as js
+from ray_tracing_octrees_tpu_torch.trace import slab_sweep as ts
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "ray_tracing_octrees_tpu_torch"
+TO_LIGHT = (0.5, 0.9, 0.4)
+W, H = 256, 64
+POSES = {
+    "exterior": dict(theta=0.5, phi=0.8, radius=2.2),
+    "below": dict(theta=-0.9, phi=4.0, radius=2.0),
+    "interior": dict(theta=0.05, phi=3.2, radius=0.05,
+                     target=np.array([0.0, 0.0, -0.3], np.float32)),
+}
+
+
+def _camera(name):
+    p = dict(POSES[name])
+    target = p.pop("target", None)
+    cam = Camera(**p)
+    if target is not None:
+        cam.set_target(target)
+    return cam
+
+
+@pytest.fixture(scope="module")
+def scene():
+    g = make_sphere_grid(32)
+    vol = (np.asarray(g.occ) > 0).astype(np.float32)
+    return (g, vol, js.shadow_volume(vol, TO_LIGHT),
+            ts.shadow_volume(vol, TO_LIGHT, device="cpu"))
+
+
+def _agree(a, b):
+    """Share of pixels within 1.5/255 on every channel."""
+    return float((np.abs(a - b).max(-1) <= 1.5 / 255.0).mean())
+
+
+@pytest.mark.parametrize("name", list(POSES))
+def test_frame_matches_reference(scene, name):
+    """The port's render_fast_frame on the CPU against the JAX frame (the
+    split XLA path, unquantized colours) and against the JAX fused Pallas
+    frame run interpreted, at the bar of tests/test_warp_kernel.py."""
+    g, vol, sv_j, sv_t = scene
+    cam = _camera(name)
+    ld = tuple(-c for c in TO_LIGHT)
+    ref = np.asarray(js.render_fast_frame(
+        vol, sv_j, g.origin, g.voxel_size, cam.get_pos(), cam.get_view(),
+        45.0, W / H, W, H, light_dir=ld, inter_h=256, inter_w=256))
+    aw, flip, (S, A, B), eyes, window, crop = js._sweep_geometry(
+        vol, g.origin, g.voxel_size, cam.get_pos(), cam.get_view())
+    vb = js._layout_volume(vol, aw, flip, S, A, B, crop)
+    scal = js._frame_scalars(
+        *eyes[:3], eyes[3], *window, 45.0, W / H, float(g.voxel_size), S,
+        np.asarray(g.origin, np.float32) + js._AXIS_SELECTORS[aw][0]
+        * np.float32(crop * float(g.voxel_size)),
+        np.asarray(cam.get_pos(), np.float32), cam.get_view(), ld,
+        (1.0, 0.8, 0.6), (0.1, 0.1, 0.1))
+    fused = np.asarray(js._frame_fused(
+        vb, sv_j, scal, vb.shape[0] // 32, S, A, B, 256, 256, bool(flip), aw,
+        W, H, True, warp_cfg=(32, 128, 256), crop_lo=crop, s_keep=S))
+
+    out = ts.render_fast_frame(
+        torch.from_numpy(vol), sv_t, np.asarray(g.origin),
+        float(g.voxel_size), cam.get_pos(), cam.get_view(), 45.0, W / H, W, H,
+        light_dir=ld, inter_h=256, inter_w=256, device="cpu").numpy()
+    assert out.shape == (H, W, 4) and out.dtype == np.float32
+    refq = np.round(np.clip(ref, 0.0, 1.0) * 255.0) / 255.0
+    assert _agree(out, refq) > 0.995
+    assert _agree(out, fused) > 0.995
+    assert (out[..., :3].max(-1) > 0).any()
+
+
+def test_frame_has_lit_shadowed_and_background(scene):
+    g, vol, _, sv_t = scene
+    cam = _camera("exterior")
+    kw = dict(light_dir=tuple(-c for c in TO_LIGHT), inter_h=256, inter_w=256,
+              device="cpu")
+    args = (np.asarray(g.origin), float(g.voxel_size), cam.get_pos(),
+            cam.get_view(), 45.0, W / H, W, H)
+    vol_t = torch.from_numpy(vol)
+    out = ts.render_fast_frame(vol_t, sv_t, *args, **kw).numpy()
+    out_nosh = ts.render_fast_frame(vol_t, None, *args, **kw).numpy()
+    mx = out[..., :3].max(-1)
+    assert (mx > 0.5).any() and (mx == 0).any()
+    amb = np.float32(26) * np.float32(1 / 255)
+    shadowed = (out[..., :3] == amb).all(-1)
+    assert shadowed.any()
+    # same visibility with and without the shadow channel
+    assert np.array_equal(mx > 0, out_nosh[..., :3].max(-1) > 0)
+    assert (out[..., 3] == 1).all()
+
+
+def test_layouts_reused_across_frames(scene):
+    g, vol, _, sv_t = scene
+    vol_t = torch.from_numpy(vol)
+    lay = ts.SweepLayouts(vol_t, sv_t)
+    frames = []
+    for phi in (0.8, 0.8001):
+        cam = Camera(theta=0.5, phi=phi, radius=2.2)
+        frames.append(ts.render_fast_frame(
+            vol_t, sv_t, np.asarray(g.origin), float(g.voxel_size),
+            cam.get_pos(), cam.get_view(), 45.0, W / H, W, H, layouts=lay,
+            device="cpu"))
+    assert len(lay._cache) == 2     # one volume + one shadow layout
+    fresh = ts.render_fast_frame(
+        vol_t, sv_t, np.asarray(g.origin), float(g.voxel_size),
+        cam.get_pos(), cam.get_view(), 45.0, W / H, W, H, device="cpu")
+    assert torch.equal(frames[1], fresh)
+
+
+def _entry_points():
+    from ray_tracing_octrees_tpu_torch.core import cache, grid
+    from ray_tracing_octrees_tpu_torch.render import camera
+    from ray_tracing_octrees_tpu_torch import convert
+
+    vol = np.zeros((8, 8, 8), np.float32)
+    vol[3:5, 3:5, 3:5] = 1
+    cam = camera.Camera(theta=0.4, phi=0.8, radius=2.0)
+    return {
+        "make_sphere_grid": lambda: grid.make_sphere_grid(8),
+        "generate_test_volume": lambda: grid.generate_test_volume(4, 4, 4),
+        "VoxelGrid.create": lambda: grid.VoxelGrid.create(vol),
+        "grid_from_numpy": lambda: convert.grid_from_numpy(vol, (0, 0, 0), 1),
+        "load_voxel_grid": lambda: cache.load_voxel_grid("unused.bin"),
+        "generate_rays": lambda: camera.generate_rays(
+            4, 4, cam.get_pos(), cam.get_view(), 45.0, 1.0),
+        "shadow_volume": lambda: ts.shadow_volume(vol, TO_LIGHT),
+        "render_fast_frame": lambda: ts.render_fast_frame(
+            vol, None, (-0.5, -0.5, -0.5), 1 / 8, cam.get_pos(),
+            cam.get_view(), 45.0, 1.0, 16, 16),
+    }
+
+
+@pytest.mark.parametrize("entry", list(_entry_points()))
+def test_entry_points_refuse_cpu_without_asking(monkeypatch, entry, tmp_path):
+    """With no CUDA device and no device argument an entry point raises:
+    it never carries on on the CPU unless the caller asks."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    if entry == "load_voxel_grid":
+        from ray_tracing_octrees_tpu_torch.core import cache, grid
+        cache.save_voxel_grid("unused.bin", grid.make_sphere_grid(
+            8, device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[entry]()
+
+
+def test_port_imports_no_jax():
+    code = ("import sys; import ray_tracing_octrees_tpu_torch.trace.slab_sweep, "
+            "ray_tracing_octrees_tpu_torch.core.cache, "
+            "ray_tracing_octrees_tpu_torch.convert, "
+            "ray_tracing_octrees_tpu_torch.trace.fmad_check; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'ray_tracing_octrees_tpu' "
+            "or m.startswith('ray_tracing_octrees_tpu.')]; "
+            "assert not bad, bad; print('clean')")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "clean" in r.stdout
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_static_scan_no_jax_imports():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 8
+    for f in files:
+        for mod in _imported_modules(f):
+            top = mod.split(".")[0]
+            assert top != "jax", f"{f} imports {mod}"
+            assert top != "ray_tracing_octrees_tpu", f"{f} imports {mod}"
+        text = f.read_text()
+        assert "import jax" not in text, f
+        assert "ray_tracing_octrees_tpu." not in text.replace(
+            "ray_tracing_octrees_tpu_torch", ""), f
