@@ -5,17 +5,37 @@
 
 Phases (each prints one flushed line; any failure raises, exit non-zero):
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile every CUDA kernel of the path with nvcc (in parallel)
+  2. build    compile every CUDA kernel of the paths with nvcc (one process
+              per source, all started together)
   3. scene    the reference's 256^3 sphere and its directional shadow volume
   4. frame    1920x1080 frames at the bench pose through render_fast_frame,
               with every kernel's launch count read around the run; the
               frame must hold lit, shadowed and background pixels, and a
               small frame on the card must agree with the same frame on
               the CPU (plain versions)
-  5. kernels  each kernel against its plain PyTorch version on the card,
-              at the main path's shapes, for three poses
-  6. timing   frame ms, Mrays/s, and each kernel's time beside its bound
-  7. lines    the kernels JSON line, the nvidia-smi line, and last the
+  5. kernels  warp_frame against its plain PyTorch version on the card, at
+              the main path's shapes, for three poses
+  6. timing   frame ms, Mrays/s, and warp_frame's time beside its bound
+  7. first hit  sweep_first_hit at 1920x1080 and the bench pose, its
+              launch counts read around the run
+  8. exact    1920x1080 frames of render_fast_exact_frame with the shadow
+              volume at the bench angles and radius 2.0 x extent (the
+              headline radius is outside the exact envelope), launch
+              counts read around the run; overflow 0, lit, shadowed and
+              background pixels, ms per frame split into cube sweep,
+              per-pixel resolve and fallback
+  9. parity   hit mismatch and depth RMS (voxels) against the port's DDA
+              oracle trace_octree on the card: sweep_first_hit at 240x136
+              (bench pose), fast_exact_first_hit at 480x270 (radius 2.0),
+              where every mismatch must be a grazing crossing; then both
+              on the 32^3 sphere on the card and on the CPU, which must
+              give equal hit masks and equal t
+  10. lookups warp_lookup on sweep_first_hit's 1024^2 table and 1080p lin,
+              warp_lookup_multi on the exact frame's three planes at both
+              radius-2.0 poses, each bitwise against its plain version;
+              their times beside the byte bound, the plain version and one
+              torch.take of the decoded index
+  11. lines   the kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line
 
 Imports nothing of JAX or of the JAX package. Without a CUDA device, or
@@ -42,8 +62,15 @@ PEAK_F32_S = 67e12
 # f32 operations per pixel in warp_frame.cu, counted from the source
 # (ray 20, plane + texel 13, depth 12, normal 3x16 + 1, Lambert 5, colour 18)
 WARP_OPS_PER_PIXEL = 117
+# what a kernel's "ms" is: its own device time under torch.profiler, or,
+# where the profiler records none, CUDA events around back-to-back calls
+# of its Python wrapper (which then include the wrapper's host time)
+MS_SOURCE = {True: "torch.profiler: the kernel's device time",
+             False: "CUDA events over back-to-back wrapper calls"}
 MATCH_TOL = 1.5 / 255.0
 MATCH_SHARE = 0.995
+N_EXACT = 5           # exact frames per timed window
+EXACT_RADIUS = 2.0    # x extent: the bench angles inside the exact envelope
 
 
 def log(phase: str, msg: str) -> None:
@@ -59,20 +86,54 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls (CUDA events)."""
+def cuda_ms(fn, iters: int, windows: int = 3) -> float:
+    """Device time of one ``fn()`` call (CUDA events): the best of
+    ``windows`` windows of ``iters`` back-to-back calls, after
+    ``iters // 4 + 1`` calls that warm the card's clocks and caches."""
     import torch
+
+    for _ in range(iters // 4 + 1):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def profiled(fn, iters: int):
+    """(wall ms per call, {kernel name: device ms per call}) of ``iters``
+    calls of ``fn()`` under ``torch.profiler``; the dict is empty when
+    the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / iters * 1e3
+    per = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = max(float(getattr(e, k, 0.0) or 0.0) for k in (
+            "self_device_time_total", "self_cuda_time_total"))
+        if us > 0:
+            per[e.key] = per.get(e.key, 0.0) + us / iters / 1e3
+    return wall, per
 
 
 def frame_classes(img):
@@ -100,6 +161,58 @@ def rgb_agreement(a, b):
             float(diff.max()))
 
 
+def grazing_failures(idx, o, d, t_a, t_b, occ, origin, vs):
+    """Mismatched rays (flat indices ``idx``) that are NOT grazing
+    crossings: the grazing rule of tests/test_fast_exact.py, scaled by the
+    voxel size. March each ray to its farther t plus a voxel; the first
+    solid voxel met must be crossed over an interval shorter than 2e-3
+    voxels."""
+    import numpy as np
+
+    bad = []
+    dz, dy, dx = occ.shape
+    for i in idx:
+        ts = np.arange(0.0, max(t_a[i], t_b[i]) + vs, 2.5e-4 * vs)
+        v = np.floor((o[i] + d[i] * ts[:, None] - origin) / vs).astype(int)
+        inb = ((v >= 0).all(1) & (v[:, 0] < dx) & (v[:, 1] < dy)
+               & (v[:, 2] < dz))
+        solid = np.zeros(len(ts), bool)
+        solid[inb] = occ[v[inb, 2], v[inb, 1], v[inb, 0]] > 0
+        if not solid.any():
+            bad.append(int(i))
+            continue
+        lo = origin + v[int(np.argmax(solid))] * vs
+        t0 = (lo - o[i]) / d[i]
+        t1 = (lo + vs - o[i]) / d[i]
+        if np.maximum(t0, t1).min() - np.minimum(t0, t1).max() >= 2e-3 * vs:
+            bad.append(int(i))
+    return bad
+
+
+def parity(hit, t, ref, vs):
+    """(hit mismatch fraction, depth RMS in voxels on agreed hits)."""
+    import torch
+
+    both = hit & ref["hit"]
+    se = torch.where(both, (t - ref["t"]) ** 2, 0.0).sum()
+    rms = float(torch.sqrt(se / both.sum().clamp(min=1))) / vs
+    return float((hit != ref["hit"]).float().mean()), rms
+
+
+def recorded(module, name):
+    """Wrap ``module.name`` so each call keeps its arguments; returns
+    (calls, restore)."""
+    calls = []
+    real = getattr(module, name)
+
+    def rec(*args):
+        calls.append(args)
+        return real(*args)
+
+    setattr(module, name, rec)
+    return calls, lambda: setattr(module, name, real)
+
+
 def main() -> int:
     import torch
 
@@ -112,9 +225,18 @@ def main() -> int:
         from ray_tracing_octrees_tpu_torch.core.grid import (
             building_center, make_sphere_grid,
         )
-        from ray_tracing_octrees_tpu_torch.render.camera import Camera
+        import numpy as np
+
+        from ray_tracing_octrees_tpu_torch.core.octree import build_pyramid
+        from ray_tracing_octrees_tpu_torch.render.camera import (
+            Camera, generate_rays,
+        )
         from ray_tracing_octrees_tpu_torch.trace import _build, slab_sweep
+        from ray_tracing_octrees_tpu_torch.trace import fast_exact
         from ray_tracing_octrees_tpu_torch.trace import warp_kernel
+        from ray_tracing_octrees_tpu_torch.trace.octree_trace import (
+            trace_octree,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port package is missing: {e}", file=sys.stderr)
         return 1
@@ -128,7 +250,7 @@ def main() -> int:
 
     # 2. build: one nvcc per kernel source, all started together
     t = time.perf_counter()
-    kernels = ["warp_frame"]
+    kernels = ["warp_frame", "warp_lookup"]
     _build.build(kernels)
     log("build", f"{kernels} in {time.perf_counter() - t:.2f} s wall; "
         + ", ".join(f"{k} {s:.2f} s" for k, s in _build.BUILD_SECONDS.items()))
@@ -261,6 +383,9 @@ def main() -> int:
     table, kscal, axis_world, has_sh = tables["bench"]
     warp_ms = cuda_ms(lambda: warp_kernel.warp_frame(
         table, kscal, axis_world, WIDTH, HEIGHT, has_sh), 200)
+    _, wper = profiled(lambda: warp_kernel.warp_frame(
+        table, kscal, axis_world, WIDTH, HEIGHT, has_sh), 50)
+    warp_dev_ms = sum(v for k, v in wper.items() if "warp_frame_kernel" in k)
     plain_ms = cuda_ms(lambda: warp_kernel.warp_frame_reference(
         table, kscal, axis_world, WIDTH, HEIGHT, has_sh), 20)
     cam = bench_camera()
@@ -280,13 +405,240 @@ def main() -> int:
         f"{N_FRAMES}: {', '.join(f'{w:.3f}' for w in windows)}), "
         f"{mrays:.1f} Mrays/s (2 rays per pixel); host enqueue "
         f"{', '.join(f'{e:.3f}' for e in enqueue)} ms per frame")
-    log("timing", f"[{smi}] warp_frame kernel {warp_ms:.4f} ms, plain "
+    log("timing", f"[{smi}] warp_frame kernel {warp_ms:.4f} ms (alone "
+        + (f"{warp_dev_ms:.4f} ms under the profiler" if warp_dev_ms
+           else "not measured") + "), plain "
         f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us (bytes "
         f"{bound_bytes_ms * 1e3:.2f} us, f32 ops {bound_ops_ms * 1e3:.2f} us); "
         f"sweep + pack {sweep_ms:.3f} ms; shadow volume {shadow_s:.3f} s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # 7. lines
+    # 7. first hit: sweep_first_hit through the warp_lookup kernel
+    wk = warp_kernel
+    look_calls, restore = recorded(slab_sweep, "warp_lookup")
+    wk.warp_lookup.launches = 0
+    wk.warp_lookup_multi.launches = 0
+    hit, t, _, _ = slab_sweep.sweep_first_hit(
+        vol, origin, vox, cam.get_pos(), cam.get_view(), 45.0, aspect, WIDTH,
+        HEIGHT, layouts=layouts, device=dev)
+    torch.cuda.synchronize()
+    restore()
+    sfh_launches = {"warp_lookup": wk.warp_lookup.launches,
+                    "warp_lookup_multi": wk.warp_lookup_multi.launches}
+    log("first hit", f"sweep_first_hit {WIDTH}x{HEIGHT}, bench pose: hit "
+        f"share {float(hit.float().mean()):.4f}; launches {sfh_launches}")
+    if sfh_launches["warp_lookup"] < 1:
+        raise RuntimeError("sweep_first_hit did not launch warp_lookup")
+    if not bool(torch.isfinite(t).all()):
+        raise RuntimeError("sweep_first_hit gave non-finite t")
+    sfh_ms = cuda_ms(lambda: slab_sweep.sweep_first_hit(
+        vol, origin, vox, cam.get_pos(), cam.get_view(), 45.0, aspect, WIDTH,
+        HEIGHT, layouts=layouts, device=dev), 5)
+
+    # 8. exact: render_fast_exact_frame through warp_lookup_multi
+    def exact_camera(theta=0.9, phi=0.8):
+        c = Camera(theta=theta, phi=phi, radius=EXACT_RADIUS * extent)
+        c.set_target(center)
+        return c
+
+    def exact_frame(c, mark=None):
+        out = fast_exact.render_fast_exact_frame(
+            vol, shadow, origin, vox, c.get_pos(), c.get_view(), 45.0, aspect,
+            WIDTH, HEIGHT, light_dir=light_dir, with_stats=True,
+            layouts=layouts, device=dev, mark=mark)
+        if out is None:
+            raise RuntimeError("the exact pose is outside the envelope")
+        if out[1]["overflow"] != 0 or out[1]["unresolved"] != 0:
+            raise RuntimeError(f"exact frame dropped pixels: {out[1]}")
+        return out
+
+    ecam = exact_camera()
+    multi_calls, restore = recorded(fast_exact, "warp_lookup_multi")
+    wk.warp_lookup.launches = 0
+    wk.warp_lookup_multi.launches = 0
+    eimg, estats = exact_frame(ecam)
+    torch.cuda.synchronize()
+    restore()
+    ewindows = []
+    for _ in range(3):
+        t = time.perf_counter()
+        for _ in range(N_EXACT):
+            ecam.phi += 1e-4
+            _, st = exact_frame(ecam)
+        torch.cuda.synchronize()
+        ewindows.append((time.perf_counter() - t) / N_EXACT * 1e3)
+    n_exact = 1 + 3 * N_EXACT
+    ex_launches = {"warp_lookup": wk.warp_lookup.launches,
+                   "warp_lookup_multi": wk.warp_lookup_multi.launches}
+    log("exact", f"{n_exact} frames at {WIDTH}x{HEIGHT}, radius "
+        f"{EXACT_RADIUS} x extent; stats {estats}; launches {ex_launches}")
+    if ex_launches["warp_lookup_multi"] < n_exact:
+        raise RuntimeError(f"warp_lookup_multi launched "
+                           f"{ex_launches['warp_lookup_multi']} times in "
+                           f"{n_exact} exact frames")
+    if tuple(eimg.shape) != (HEIGHT, WIDTH, 4) or not bool(
+            torch.isfinite(eimg).all()):
+        raise RuntimeError(f"bad exact frame {tuple(eimg.shape)}")
+    e_lit, e_shadowed, e_background = frame_classes(eimg)
+    log("exact", f"lit {e_lit}, shadowed {e_shadowed}, background "
+        f"{e_background} px")
+    if min(e_lit, e_shadowed, e_background) == 0:
+        raise RuntimeError("the exact frame lacks lit, shadowed or "
+                           "background pixels")
+    stage_ms = {"cube_sweep": [], "resolve": [], "fallback": []}
+    for _ in range(3):
+        ecam.phi += 1e-4
+        marks = []
+
+        def mark(stage):
+            marks.append((stage, torch.cuda.Event(enable_timing=True)))
+            marks[-1][1].record()
+
+        mark("start")
+        exact_frame(ecam, mark)
+        torch.cuda.synchronize()
+        for (_, a), (stage, b) in zip(marks, marks[1:]):
+            stage_ms[stage].append(a.elapsed_time(b))
+    stage_ms = {k: min(v) for k, v in stage_ms.items()}
+    ewall, eper = profiled(lambda: exact_frame(ecam), 2)
+    ebusy = sum(eper.values())
+    log("exact", f"profiled: wall {ewall:.3f} ms per frame, device busy "
+        + (f"{ebusy:.3f} ms, idle share {max(0.0, 1 - ebusy / ewall):.3f}, "
+           f"{len(eper)} kernel kinds" if eper else "not measured"))
+    exact_ms = min(ewindows)
+    exact_mrays = 2 * WIDTH * HEIGHT / (exact_ms / 1e3) / 1e6
+    log("exact", f"[{smi}] {exact_ms:.3f} ms per frame (best of 3 windows "
+        f"of {N_EXACT}: {', '.join(f'{w:.3f}' for w in ewindows)}), "
+        f"{exact_mrays:.1f} Mrays/s (2 rays per pixel); stages (CUDA "
+        f"events, best of 3): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in stage_ms.items()))
+
+    # 9. parity against the DDA oracle on the card
+    pyr = build_pyramid(grid.occ)
+    occ_np = grid.occ.cpu().numpy()
+    checks_parity = {}
+    for name, (pw, ph, pc) in {"sweep_first_hit": (240, 136, bench_camera()),
+                               "fast_exact_first_hit": (480, 270,
+                                                        exact_camera())}.items():
+        o, d = generate_rays(pw, ph, pc.get_pos(), pc.get_view(), 45.0,
+                             pw / ph, device=dev)
+        ref = trace_octree(pyr, o, d, origin, vox)
+        args = (vol, origin, vox, pc.get_pos(), pc.get_view(), 45.0, pw / ph,
+                pw, ph)
+        if name == "sweep_first_hit":
+            hit, t, _, _ = slab_sweep.sweep_first_hit(
+                *args, layouts=layouts, device=dev)
+        else:
+            (hit, t, _, _), st = fast_exact.fast_exact_first_hit(
+                *args, with_stats=True, layouts=layouts, device=dev)
+            if st["overflow"] != 0:
+                raise RuntimeError(f"fast_exact_first_hit overflow: {st}")
+        mism, rms = parity(hit, t, ref, vox)
+        n_mism = int((hit != ref["hit"]).sum())
+        missed = int((ref["hit"] & ~hit).sum())
+        checks_parity[name] = {"hit_mismatch_frac": mism,
+                               "depth_rms_voxels": rms,
+                               "mismatches": n_mism,
+                               "oracle_hits_missed": missed}
+        log("parity", f"{name} {pw}x{ph}: hit mismatch {mism:.6f} "
+            f"({n_mism} px, {missed} oracle hits missed), depth RMS "
+            f"{rms:.6f} voxels; oracle steps max {int(ref['steps'].max())}")
+        if name == "fast_exact_first_hit":
+            idx = torch.nonzero(hit != ref["hit"]).squeeze(1).cpu().numpy()
+            bad = grazing_failures(
+                idx, o.cpu().numpy().astype(np.float64),
+                d.cpu().numpy().astype(np.float64), t.cpu().numpy(),
+                ref["t"].cpu().numpy(), occ_np, origin.astype(np.float64),
+                vox)
+            if bad:
+                raise RuntimeError(f"fast-exact mismatches that are not "
+                                   f"grazing crossings: {bad[:10]}")
+
+    # the same small frames on the card and on the CPU
+    svol_d = svol.to(dev)
+    for name, pc in {"sweep_first_hit": Camera(theta=0.5, phi=0.8,
+                                               radius=2.2),
+                     "fast_exact_first_hit": Camera(theta=0.9, phi=0.8,
+                                                    radius=2.0)}.items():
+        fn = (slab_sweep.sweep_first_hit if name == "sweep_first_hit"
+              else fast_exact.fast_exact_first_hit)
+        args = (small.origin.numpy(), float(small.voxel_size), pc.get_pos(),
+                pc.get_view(), 45.0, 128 / 72, 128, 72)
+        h_c, t_c = fn(svol, *args, device="cpu")[:2]
+        h_g, t_g = (x.cpu() for x in fn(svol_d, *args, device=dev)[:2])
+        log("parity", f"{name} 32^3 sphere 128x72, card vs CPU: hit masks "
+            f"equal {torch.equal(h_g, h_c)} ({int((h_g != h_c).sum())} px "
+            f"differ), t equal {torch.equal(t_g, t_c)} (max abs diff "
+            f"{float((t_g - t_c).abs().max()):.3g})")
+        if not (torch.equal(h_g, h_c) and torch.equal(t_g, t_c)):
+            raise RuntimeError(f"{name} on the card disagrees with the CPU")
+
+    # 10. the lookup kernels against their plain versions, and their times
+    lookups = {}
+    table, lin = look_calls[0]
+    multi_in = {}
+    for name, (th_, ph_) in {"flip_true": (0.9, 0.8),
+                             "flip_false": (-0.9, 0.8 + 3.14159)}.items():
+        if name == "flip_true":
+            multi_in[name] = multi_calls[0]
+            continue
+        calls, restore = recorded(fast_exact, "warp_lookup_multi")
+        exact_frame(exact_camera(th_, ph_))
+        restore()
+        multi_in[name] = calls[0]
+    for kname, inputs in {"warp_lookup": {"bench": (table, lin)},
+                          "warp_lookup_multi": multi_in}.items():
+        kern = getattr(wk, kname)
+        plain = getattr(wk, kname + "_reference")
+        res = {}
+        for pname, (tab, ln) in inputs.items():
+            out = kern(tab, ln)
+            ref = plain(tab, ln)
+            torch.cuda.synchronize()
+            res[pname] = (float((out == ref).float().mean()),
+                          float((out - ref).abs().max()))
+            log("lookups", f"{kname} {pname} (table "
+                f"{tuple(tab.shape)}, lin {tuple(ln.shape)}, miss share "
+                f"{float((ln < 0).float().mean()):.4f}): bitwise "
+                f"{res[pname][0]:.6f}, max abs err {res[pname][1]}")
+        if any(b != 1.0 for b, _ in res.values()):
+            raise RuntimeError(f"{kname} differs from its plain version: {res}")
+        tab, ln = next(iter(inputs.values()))
+        planes = 1 if tab.ndim == 2 else tab.shape[0]
+        th, tw = tab.shape[-2:]
+        flat = torch.where(ln < 0, 0, (ln >> 10) * tw + (ln & 1023)).long()
+        if planes > 1:
+            flat = flat[None] + torch.arange(
+                planes, device=dev)[:, None, None] * (th * tw)
+        k_ms = cuda_ms(lambda: kern(tab, ln), 200)
+        _, kper = profiled(lambda: kern(tab, ln), 50)
+        dev_ms = sum(v for k, v in kper.items() if "warp_lookup_kernel" in k)
+        p_ms = cuda_ms(lambda: plain(tab, ln), 20)
+        l_ms = cuda_ms(lambda: torch.take(tab, flat), 200)
+        _, lper = profiled(lambda: torch.take(tab, flat), 50)
+        n_px = ln.numel()
+        bound_bytes_ms = (n_px * (4 + 4 * planes)
+                          + planes * th * tw * 4) / PEAK_BYTES_S * 1e3
+        # a shift, a mask, two clamps and an index product per pixel
+        bound_ops_ms = 5 * n_px / PEAK_F32_S * 1e3
+        lookups[kname] = dict(
+            res=res, ms=dev_ms or k_ms, wrapper_ms=k_ms,
+            plain_ms=p_ms, library_ms=l_ms,
+            library_device_ms=sum(lper.values()) or None,
+            bound_ms=max(bound_bytes_ms, bound_ops_ms),
+            bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+            else "operations")
+        log("lookups", f"[{smi}] {kname} kernel {k_ms:.4f} ms (CUDA "
+            f"events over wrapper calls; the kernel alone "
+            + (f"{dev_ms:.4f} ms under the profiler" if dev_ms else
+               f"not measured: profiler kernels {list(kper)[:3]}")
+            + f"), plain "
+            f"{p_ms:.4f} ms, torch.take {l_ms:.4f} ms (its kernels "
+            f"{sum(lper.values()):.4f} ms under the profiler), bound "
+            f"{lookups[kname]['bound_ms'] * 1e3:.2f} us ({planes} plane(s), "
+            f"{n_px} px, table {th}x{tw})")
+
+    # 11. lines
     record = {"kernels": [{
         "name": "warp_frame",
         "route": "cuda",
@@ -299,13 +651,45 @@ def main() -> int:
         "match_bar": "share of pixels within 1.5/255 on every channel > 0.995",
         "match_share": {k: s for k, (_, s, _) in checks.items()},
         "match_ok": True,
-        "ms": warp_ms,
+        "ms": warp_dev_ms or warp_ms,
+        "ms_source": MS_SOURCE[bool(warp_dev_ms)],
+        "wrapper_ms": warp_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
-    }], "frame_ms": frame_ms, "mrays_per_s": mrays, "sweep_ms": sweep_ms,
-        "card": smi}
+    }] + [{
+        "name": kname,
+        "route": "cuda",
+        "source": "ray_tracing_octrees_tpu_torch/trace/csrc/warp_lookup.cu",
+        "replaces": "ray_tracing_octrees_tpu/trace/warp_kernel.py:"
+                    + ("50" if kname == "warp_lookup" else "192"),
+        "launches": launches_of,
+        "launches_per_frame": launches_of / n_frames,
+        "max_abs_err": max(e for _, e in lk["res"].values()),
+        "bitwise_share": {k: b for k, (b, _) in lk["res"].items()},
+        "match_bar": "bitwise equal (share 1.0)",
+        "match_share": {k: b for k, (b, _) in lk["res"].items()},
+        "match_ok": True,
+        "ms": lk["ms"],
+        "ms_source": MS_SOURCE[lk["ms"] != lk["wrapper_ms"]],
+        "wrapper_ms": lk["wrapper_ms"],
+        "plain_ms": lk["plain_ms"],
+        "bound_ms": lk["bound_ms"],
+        "bound_by": lk["bound_by"],
+        "library_ms": lk["library_ms"],
+        "library_device_ms": lk["library_device_ms"],
+    } for kname, lk, launches_of, n_frames in (
+        ("warp_lookup", lookups["warp_lookup"],
+         sfh_launches["warp_lookup"], 1),
+        ("warp_lookup_multi", lookups["warp_lookup_multi"],
+         ex_launches["warp_lookup_multi"], n_exact))],
+        "frame_ms": frame_ms, "mrays_per_s": mrays, "sweep_ms": sweep_ms,
+        "sweep_first_hit_ms": sfh_ms, "exact_frame_ms": exact_ms,
+        "exact_mrays_per_s": exact_mrays, "exact_stage_ms": stage_ms,
+        "exact_stats": estats, "exact_profiled_wall_ms": ewall,
+        "exact_device_busy_ms": ebusy if eper else None,
+        "parity": checks_parity, "card": smi}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

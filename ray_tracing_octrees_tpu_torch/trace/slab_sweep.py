@@ -29,7 +29,7 @@ import torch
 
 from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
 from ray_tracing_octrees_tpu_torch.trace.warp_kernel import (
-    frame_scalars, unpack_frame_rgb, warp_frame,
+    _SAB_IDX, frame_scalars, unpack_frame_rgb, warp_frame, warp_lookup,
 )
 
 CH = 32   # sweep chunk: slabs per product
@@ -68,6 +68,21 @@ def _exact_matmul():
         yield
     finally:
         m.allow_tf32, m.allow_bf16_reduced_precision_reduction = saved
+
+
+def _fdiv(x: torch.Tensor, n) -> torch.Tensor:
+    """``x / n`` for a Python number ``n``, rounded as one IEEE division on
+    every device: on CUDA, dividing by a Python number multiplies by its
+    rounded reciprocal instead, which can differ from the CPU's (and the
+    reference's) quotient in the last bit."""
+    return x / torch.full((), n, dtype=x.dtype, device=x.device)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root on every device. The CPU's
+    vectorized f32 ``torch.sqrt`` is an ulp off on some inputs, where the
+    card's is exact; through f64 both round once."""
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -200,10 +215,16 @@ class SweepLayouts:
     def get(self, which: str, axis_world: int, flip: bool, S: int,
             crop_lo: int) -> torch.Tensor:
         key = (which, axis_world, bool(flip), S, crop_lo)
+        return self.derived(key, lambda: _layout_volume(
+            self.volume if which == "volume" else self.shadow,
+            axis_world, flip, S, crop_lo))
+
+    def derived(self, key: tuple, build):
+        """A per-scene value built once by ``build()`` and kept under
+        ``key`` (the exact tracers' packed neighbourhoods, for example)."""
         out = self._cache.get(key)
         if out is None:
-            src = self.volume if which == "volume" else self.shadow
-            out = _layout_volume(src, axis_world, flip, S, crop_lo)
+            out = build()
             self._cache[key] = out
         return out
 
@@ -211,6 +232,32 @@ class SweepLayouts:
 # --------------------------------------------------------------------------
 # the sweep
 # --------------------------------------------------------------------------
+
+def _bilinear_hats(scal, sp: int, s_valid: int, a_size: int, b_size: int,
+                   inter_h: int, inter_w: int, flip: bool):
+    """The sweep's [sp, IH, A] and [sp, IW, B] bf16 linear-interpolation
+    hat stacks: texel centres projected onto each slab."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    dev = scal.device
+    eye_s, eye_a, eye_b, z0 = scal[0], scal[1], scal[2], scal[3]
+    a_min, a_max, b_min, b_max = scal[4], scal[5], scal[6], scal[7]
+    ua = a_min + _fdiv((a_max - a_min) * (
+        torch.arange(inter_h, dtype=f32, device=dev) + 0.5), inter_h)
+    ub = b_min + _fdiv((b_max - b_min) * (
+        torch.arange(inter_w, dtype=f32, device=dev) + 0.5), inter_w)
+    o_all = torch.arange(sp, dtype=f32, device=dev)
+    k_all = (float(s_valid) - 1.0 - o_all) if flip else o_all
+    s_all = (z0 - eye_s) / (k_all + 0.5 - eye_s)
+    pa_all = (ua[None, :] - eye_a) / s_all[:, None] + eye_a
+    pb_all = (ub[None, :] - eye_b) / s_all[:, None] + eye_b
+    ia = torch.arange(a_size, dtype=f32, device=dev)
+    ib = torch.arange(b_size, dtype=f32, device=dev)
+    ma_all = torch.clamp(1.0 - (pa_all[..., None] - 0.5 - ia).abs(),
+                         min=0.0).to(bf16)
+    mb_all = torch.clamp(1.0 - (pb_all[..., None] - 0.5 - ib).abs(),
+                         min=0.0).to(bf16)
+    return ma_all, mb_all
+
 
 def _sweep_core(vol_bf, scal, s_valid: int, a_size: int, b_size: int,
                 inter_h: int, inter_w: int, flip: bool, shadow_sw=None):
@@ -220,28 +267,11 @@ def _sweep_core(vol_bf, scal, s_valid: int, a_size: int, b_size: int,
     Returns (first_o f32[IH, IW]: layout row of the first hit, s_valid + 1
     on a miss; sh_first f32[IH, IW]: the shadow sample at that hit).
     """
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32 = torch.float32
     dev = vol_bf.device
     sp = vol_bf.shape[0]
-    eye_s, eye_a, eye_b, z0 = scal[0], scal[1], scal[2], scal[3]
-    a_min, a_max, b_min, b_max = scal[4], scal[5], scal[6], scal[7]
-
-    ua = a_min + (a_max - a_min) * (
-        torch.arange(inter_h, dtype=f32, device=dev) + 0.5) / inter_h
-    ub = b_min + (b_max - b_min) * (
-        torch.arange(inter_w, dtype=f32, device=dev) + 0.5) / inter_w
-    o_all = torch.arange(sp, dtype=f32, device=dev)
-    k_all = (float(s_valid) - 1.0 - o_all) if flip else o_all
-    s_all = (z0 - eye_s) / (k_all + 0.5 - eye_s)
-    pa_all = (ua[None, :] - eye_a) / s_all[:, None] + eye_a
-    pb_all = (ub[None, :] - eye_b) / s_all[:, None] + eye_b
-    ia = torch.arange(a_size, dtype=f32, device=dev)
-    ib = torch.arange(b_size, dtype=f32, device=dev)
-    # [sp, IH, A] and [sp, IW, B] bf16 hat stacks
-    ma_all = torch.clamp(1.0 - (pa_all[..., None] - 0.5 - ia).abs(),
-                         min=0.0).to(bf16)
-    mb_all = torch.clamp(1.0 - (pb_all[..., None] - 0.5 - ib).abs(),
-                         min=0.0).to(bf16)
+    ma_all, mb_all = _bilinear_hats(scal, sp, s_valid, a_size, b_size,
+                                    inter_h, inter_w, flip)
 
     big_o = float(s_valid + 1)
     first_o = torch.full((inter_h, inter_w), big_o, dtype=f32, device=dev)
@@ -418,15 +448,7 @@ def _frame_table(volume, shadow_vol, grid_origin, voxel_size, camera_pos,
     from the sweep, the kernel's scalars (host f32[35]), the sweep axis
     and whether the table carries the shadow bit."""
     dev = resolve_device(device)
-    if layouts is None:
-        layouts = SweepLayouts(
-            torch.as_tensor(volume, dtype=torch.float32, device=dev),
-            None if shadow_vol is None else
-            torch.as_tensor(shadow_vol, dtype=torch.float32, device=dev))
-    elif layouts.volume is not volume or layouts.shadow is not shadow_vol:
-        raise ValueError("layouts belong to another volume or shadow volume")
-    if layouts.volume.device != dev:
-        raise ValueError(f"volume is on {layouts.volume.device}, not {dev}")
+    layouts = _scene_layouts(volume, shadow_vol, layouts, dev)
     origin = np.asarray(_host(grid_origin), np.float32)
     vox = float(_host(voxel_size))
     axis_world, flip, (S, A, B), eyes, window, crop_lo = _sweep_geometry(
@@ -450,6 +472,21 @@ def _frame_table(volume, shadow_vol, grid_origin, voxel_size, camera_pos,
     return table, frame_scalars(scal_np), axis_world, has_shadow
 
 
+def _scene_layouts(volume, shadow_vol, layouts, dev) -> SweepLayouts:
+    """The caller's per-scene layouts, checked against the scene, or new
+    ones for a single frame. ``shadow_vol=...`` checks the volume only."""
+    if layouts is None:
+        as_dev = lambda x: None if x is None or x is ... else \
+            torch.as_tensor(x, dtype=torch.float32, device=dev)
+        layouts = SweepLayouts(as_dev(volume), as_dev(shadow_vol))
+    elif layouts.volume is not volume or (
+            shadow_vol is not ... and layouts.shadow is not shadow_vol):
+        raise ValueError("layouts belong to another volume or shadow volume")
+    if layouts.volume.device != dev:
+        raise ValueError(f"volume is on {layouts.volume.device}, not {dev}")
+    return layouts
+
+
 def _host(x):
     """A host (numpy) value from a tensor, array or number. Pass host
     values per frame: reading a CUDA tensor waits for the device."""
@@ -460,36 +497,51 @@ def _host(x):
 # the split per-pixel path (ray setup, lookup, shade as separate stages)
 # --------------------------------------------------------------------------
 
+def _view_consts(scal_np) -> np.ndarray:
+    """f32[10]: tan(fov / 2) and the rotation ``inv(view)[:3, :3]`` (row
+    major) of the packed frame scalars, computed on the host in f32 so the
+    card and the CPU trace the very same rays (a device inverse, tangent
+    or small matmul rounds differently on each)."""
+    scal_np = np.asarray(scal_np, np.float32)
+    tan_half = np.tan(scal_np[8] * np.float32(math.pi / 360.0))
+    rot = np.linalg.inv(scal_np[18:34].reshape(4, 4))[:3, :3]
+    return np.concatenate([[tan_half], rot.reshape(-1)]).astype(np.float32)
+
+
 def _warp_setup(scal, axis_world: int, inter_h: int, inter_w: int,
-                width: int, height: int):
+                width: int, height: int, consts=None):
     """Per-pixel table index + ray geometry: (lin, behind, dirs, d_s_n).
 
     ``lin`` is ``iu * inter_w + iv``, or -1 for pixels that cannot hit:
     rays pointing away from the reference plane or meeting it outside
-    the table window. ``scal`` is the f32 scalar tensor on the device.
+    the table window. ``scal`` is the f32 scalar tensor on the device;
+    ``consts`` its :func:`_view_consts` on the same device (read back from
+    ``scal`` when not given). Every op is one f32 elementwise op, so the
+    card and the CPU give the same bits.
     """
     f32 = torch.float32
     dev = scal.device
+    if consts is None:
+        consts = torch.as_tensor(_view_consts(_host(scal)), device=dev)
     eye_s, eye_a, eye_b, z0 = scal[0], scal[1], scal[2], scal[3]
     a_min, a_max, b_min, b_max = scal[4], scal[5], scal[6], scal[7]
-    fov_deg, aspect, voxel_size = scal[8], scal[9], scal[10]
-    view = scal[18:34].reshape(4, 4)
+    aspect, voxel_size = scal[9], scal[10]
+    tan_half, rot = consts[0], consts[1:10].reshape(3, 3)
 
-    tan_half = torch.tan(fov_deg * np.float32(math.pi / 360.0))
-    px = (torch.arange(width, dtype=f32, device=dev) + 0.5) / width * 2.0 - 1.0
-    py = 1.0 - (torch.arange(height, dtype=f32, device=dev) + 0.5) / height * 2.0
+    px = _fdiv(torch.arange(width, dtype=f32, device=dev) + 0.5,
+               width) * 2.0 - 1.0
+    py = 1.0 - _fdiv(torch.arange(height, dtype=f32, device=dev) + 0.5,
+                     height) * 2.0
     nx = px * aspect * tan_half
     ny = py * tan_half
     nyg, nxg = torch.meshgrid(ny, nx, indexing="ij")
-    d_view = torch.stack([nxg, nyg, -torch.ones_like(nxg)], -1).reshape(-1, 3)
-    inv_view = torch.linalg.inv(view)
-    with _exact_matmul():
-        d_world = d_view @ inv_view[:3, :3].T
+    nxg, nyg = nxg.reshape(-1), nyg.reshape(-1)
+    # d_world = (nx, ny, -1) @ inv(view)[:3, :3].T, summed in order
+    dw = [nxg * rot[c, 0] + nyg * rot[c, 1] - rot[c, 2] for c in range(3)]
+    d_world = torch.stack(dw, -1)
 
-    sel = [torch.as_tensor(s, device=dev) for s in _AXIS_SELECTORS[axis_world]]
-    d_s = (d_world * sel[0]).sum(-1)
-    d_a = (d_world * sel[1]).sum(-1)
-    d_b = (d_world * sel[2]).sum(-1)
+    s_i, a_i, b_i = _SAB_IDX[axis_world]
+    d_s, d_a, d_b = dw[s_i], dw[a_i], dw[b_i]
     denom = d_s / voxel_size
     t_ref = (z0 - eye_s) / torch.where(denom.abs() < 1e-12, 1e-12, denom)
     a_ref = eye_a + d_a / voxel_size * t_ref
@@ -502,10 +554,76 @@ def _warp_setup(scal, axis_world: int, inter_h: int, inter_w: int,
     iu = uu.to(torch.int32).clamp(0, inter_h - 1)
     iv = vv.to(torch.int32).clamp(0, inter_w - 1)
     lin = torch.where(behind | oow, -1, iu * inter_w + iv)
-    d_len = torch.linalg.norm(d_world, dim=-1)
+    d_len = _sqrt(dw[0] * dw[0] + dw[1] * dw[1] + dw[2] * dw[2])
     dirs = d_world / d_len[:, None]
     d_s_n = d_s / d_len
     return lin, behind, dirs, d_s_n
+
+
+def _warp_values(packed, lin, inter_h: int, inter_w: int, width: int,
+                 height: int):
+    """Per-pixel lookup of the packed f32[IH, IW] table through
+    :func:`warp_kernel.warp_lookup`; -1 where ``lin`` is -1. ``lin`` is
+    ``iu * inter_w + iv`` (flat); the kernel takes ``(iu << 10) | iv``."""
+    lin10 = torch.where(lin < 0, -1,
+                        ((lin // inter_w) << 10) | (lin % inter_w))
+    out = warp_lookup(packed.reshape(inter_h, inter_w),
+                      lin10.to(torch.int32).reshape(height, width))
+    return out.reshape(-1)
+
+
+def _finish_sweep(w_val, behind, dirs, d_s_n, scal):
+    """(hit, t, point, dirs) from the looked-up packed values."""
+    eye_s, voxel_size, cam_pos = scal[0], scal[10], scal[15:18]
+    hit = (w_val >= 0.0) & ~behind
+    z_f = torch.clamp(w_val, min=0.0)
+    t_world = (z_f - eye_s) * voxel_size / d_s_n
+    t_world = torch.where(hit, t_world, 0.0)
+    point = cam_pos[None, :] + dirs * t_world[:, None]
+    return hit, t_world, point, dirs
+
+
+def sweep_first_hit(
+    volume,          # f32[Z, Y, X] occupancy (0/1)
+    grid_origin,
+    voxel_size,
+    camera_pos,
+    view,
+    fov_deg: float,
+    aspect: float,
+    width: int,
+    height: int,
+    inter_h: int = 1024,
+    inter_w: int = 1024,
+    layouts: Optional[SweepLayouts] = None,
+    device: DeviceLike = None,
+):
+    """First-hit trace of a full frame via the slab sweep.
+
+    The sweep's packed table (no shadow channel) maps to pixels through
+    :func:`warp_kernel.warp_lookup`. Returns (hit bool[N], t f32[N], point
+    f32[N, 3], dirs f32[N, 3]) with N = width * height, pixel order row
+    major from the top row. ``layouts`` as for :func:`render_fast_frame`
+    (only its volume is used).
+    """
+    dev = resolve_device(device)
+    layouts = _scene_layouts(volume, ..., layouts, dev)
+    origin = np.asarray(_host(grid_origin), np.float32)
+    vox = float(_host(voxel_size))
+    axis_world, flip, (S, A, B), eyes, window, crop_lo = _sweep_geometry(
+        layouts.volume.shape, origin, vox, camera_pos, view)
+    origin_c = origin + _AXIS_SELECTORS[axis_world][0] * np.float32(crop_lo * vox)
+    scal_np = _frame_scalars_np(
+        *eyes[:3], eyes[3], *window, fov_deg, aspect, vox, S, origin_c,
+        np.asarray(camera_pos, np.float32), view)
+    scal = torch.as_tensor(scal_np, device=dev)
+    vol_bf = layouts.get("volume", axis_world, bool(flip), S, crop_lo)
+    packed = _sweep_all(vol_bf, scal, S, A, B, inter_h, inter_w, bool(flip))
+    lin, behind, dirs, d_s_n = _warp_setup(
+        scal, axis_world, inter_h, inter_w, width, height,
+        torch.as_tensor(_view_consts(scal_np), device=dev))
+    w_val = _warp_values(packed, lin, inter_h, inter_w, width, height)
+    return _finish_sweep(w_val, behind, dirs, d_s_n, scal)
 
 
 def _finish_shade(w_val, behind, dirs, d_s_n, scal, width: int, height: int,
@@ -544,3 +662,32 @@ def _finish_shade(w_val, behind, dirs, d_s_n, scal, width: int, height: int,
     color = torch.where(hit[:, None], color, 0.0)
     rgba = torch.cat([color, torch.ones_like(color[:, :1])], -1)
     return rgba.reshape(height, width, 4)
+
+
+# --------------------------------------------------------------------------
+# candidate bit words
+# --------------------------------------------------------------------------
+
+def first_set_from(bits, ptr):
+    """Per row: the first set bit index >= ptr, as (has bool[m], o i32[m]).
+
+    ``bits`` int32[m, W] little-endian 32-bit words (bit b of word w = slab
+    w * 32 + b), ``ptr`` int32[m] the first slab still eligible.
+    """
+    i32 = torch.int32
+    wi = torch.arange(bits.shape[1], dtype=i32, device=bits.device)[None, :]
+    wptr = (ptr >> 5)[:, None]
+    minus_one = torch.full_like(ptr, -1)
+    mask_word = torch.bitwise_left_shift(minus_one, ptr & 31)  # bits >= ptr&31
+    m = torch.where(wi > wptr, bits,
+                    torch.where(wi == wptr, bits & mask_word[:, None], 0))
+    nz = m != 0
+    has = nz.any(dim=1)
+    fw = torch.argmax(nz.to(torch.uint8), dim=1)
+    word = torch.gather(m, 1, fw[:, None])[:, 0]
+    # the lowest set bit, a power of two (-2^31 when it is bit 31); its
+    # index is frexp's exponent - 1 (frexp is exact on powers of two)
+    lsb = (word & -word).to(torch.float64).abs()
+    b = torch.frexp(lsb).exponent - 1        # -1 for a zero word
+    o = fw.to(i32) * 32 + torch.clamp(b, min=0).to(i32)
+    return has, o

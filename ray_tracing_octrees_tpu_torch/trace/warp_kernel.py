@@ -12,6 +12,13 @@ Lambert + ambient (ambient only under shadow) into one ``0xRRGGBB`` int32.
 On a CUDA tensor :func:`warp_frame` launches the hand-written kernel
 ``csrc/warp_frame.cu``; on a CPU tensor it runs the plain PyTorch version
 :func:`warp_frame_reference`. There is no other path.
+
+The module also holds the plain per-pixel lookups of the unfused paths,
+counterparts of the reference's ``warp_lookup`` and ``warp_lookup_multi``:
+:func:`warp_lookup` and :func:`warp_lookup_multi` launch
+``csrc/warp_lookup.cu`` on CUDA tensors and run
+:func:`warp_lookup_reference` / :func:`warp_lookup_multi_reference` on CPU
+ones.
 """
 
 from __future__ import annotations
@@ -220,3 +227,132 @@ def unpack_frame_rgb(packed: torch.Tensor, width: int,
     b = (p & 255).to(torch.float32)
     a = torch.full_like(r, 255.0)
     return torch.stack([r, g, b, a], dim=-1) * (1.0 / 255.0)
+
+
+# --------------------------------------------------------------------------
+# per-pixel table lookups: T[lin >> 10, lin & 1023], the miss sentinel at
+# lin < 0
+# --------------------------------------------------------------------------
+
+def _check_lookup(tables: torch.Tensor, lin: torch.Tensor):
+    """Validate a [P, TH, TW] f32 table stack and an int32 ``lin`` field."""
+    if not torch.is_tensor(tables) or tables.dtype != torch.float32:
+        raise TypeError(f"table must be a float32 tensor, got "
+                        f"{getattr(tables, 'dtype', type(tables))}")
+    if not torch.is_tensor(lin) or lin.dtype != torch.int32:
+        raise TypeError(f"lin must be an int32 tensor, got "
+                        f"{getattr(lin, 'dtype', type(lin))}")
+    if tables.ndim != 3:
+        raise ValueError(f"tables must be [P, TH, TW], got "
+                         f"{tuple(tables.shape)}")
+    p, th, tw = tables.shape
+    if min(p, th, tw) < 1 or tw > 1024 or th > (1 << 21):
+        raise ValueError(f"table must be [TH <= 2^21, TW <= 1024], got "
+                         f"{tuple(tables.shape[1:])}")
+    if not (tables.is_contiguous() and lin.is_contiguous()):
+        raise ValueError("table and lin must be contiguous")
+    if tables.device != lin.device:
+        raise ValueError(f"table on {tables.device}, lin on {lin.device}")
+    if tables.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tables.device}")
+
+
+def _one_plane(table):
+    """A [TH, TW] table as a one-plane stack."""
+    if torch.is_tensor(table) and table.ndim != 2:
+        raise ValueError(f"table must be [TH, TW], got {tuple(table.shape)}")
+    return table[None] if torch.is_tensor(table) else table
+
+
+def _lookup_reference(tables: torch.Tensor, lin: torch.Tensor):
+    """Plain version of the lookup kernel: flat ``torch.take`` per plane.
+    Indices past the table clamp to its edge, as the kernel's do."""
+    _, th, tw = tables.shape
+    miss = lin < 0
+    iu = (lin >> 10).clamp(max=th - 1)
+    iv = (lin & 1023).clamp(max=tw - 1)
+    flat = torch.where(miss, 0, iu * tw + iv).long()
+    out = [torch.where(miss, -1.0 if p == 0 else 0.0, torch.take(t, flat))
+           for p, t in enumerate(tables)]
+    return torch.stack(out)
+
+
+def _lookup_launch(entry: str, tables: torch.Tensor, lin: torch.Tensor):
+    """Launch ``csrc/warp_lookup.cu``'s ``entry`` on the current stream."""
+    lib = _build.load("warp_lookup")
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        c_int, c_i64, c_ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+        fn.argtypes = ([c_ptr, c_int, c_int, c_ptr, c_ptr, c_i64, c_ptr]
+                       if entry == "warp_lookup_launch" else
+                       [c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_i64,
+                        c_ptr])
+        fn.restype = c_int
+    p, th, tw = tables.shape
+    with torch.cuda.device(tables.device):
+        out = torch.empty((p,) + tuple(lin.shape), dtype=torch.float32,
+                          device=tables.device)
+        stream = torch.cuda.current_stream(tables.device).cuda_stream
+        args = (th, tw, lin.data_ptr(), out.data_ptr(), lin.numel(), stream)
+        rc = (fn(tables.data_ptr(), *args) if entry == "warp_lookup_launch"
+              else fn(tables.data_ptr(), p, *args))
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {rc}")
+    return out
+
+
+def warp_lookup(table: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
+    """``out = table[lin >> 10, lin & 1023]``, -1 where ``lin < 0``.
+
+    ``table`` f32[TH, TW] with TW <= 1024; ``lin`` int32 of any shape,
+    packed ``(iu << 10) | iv``; the result has ``lin``'s shape. A CUDA
+    ``table`` launches the kernel of ``csrc/warp_lookup.cu`` (the port of
+    the reference's ``_warp_onehot_kernel``) on the current stream; a CPU
+    one runs :func:`warp_lookup_reference`.
+    """
+    tables = _one_plane(table)
+    _check_lookup(tables, lin)
+    if tables.device.type == "cpu":
+        return _lookup_reference(tables, lin)[0]
+    out = _lookup_launch("warp_lookup_launch", tables, lin)[0]
+    warp_lookup.launches += 1
+    return out
+
+
+warp_lookup.launches = 0   # kernel launches, counted where they happen
+
+
+def warp_lookup_reference(table: torch.Tensor,
+                          lin: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`warp_lookup`, on the table's device."""
+    tables = _one_plane(table)
+    _check_lookup(tables, lin)
+    return _lookup_reference(tables, lin)[0]
+
+
+def warp_lookup_multi(tables: torch.Tensor,
+                      lin: torch.Tensor) -> torch.Tensor:
+    """The same lookup for P planes from one ``lin`` field: f32[P, *lin].
+
+    ``tables`` f32[P, TH, TW]. Where ``lin < 0`` plane 0 gives -1 and the
+    other planes 0. A CUDA ``tables`` launches the kernel of
+    ``csrc/warp_lookup.cu`` (the port of the reference's
+    ``_warp_multi_kernel``): one index decode feeds every plane. A CPU one
+    runs :func:`warp_lookup_multi_reference`.
+    """
+    _check_lookup(tables, lin)
+    if tables.device.type == "cpu":
+        return _lookup_reference(tables, lin)
+    out = _lookup_launch("warp_lookup_multi_launch", tables, lin)
+    warp_lookup_multi.launches += 1
+    return out
+
+
+warp_lookup_multi.launches = 0   # kernel launches, counted where they happen
+
+
+def warp_lookup_multi_reference(tables: torch.Tensor,
+                                lin: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`warp_lookup_multi`."""
+    _check_lookup(tables, lin)
+    return _lookup_reference(tables, lin)

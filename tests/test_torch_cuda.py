@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions:
+``warp_frame`` (csrc/warp_frame.cu) and ``warp_lookup`` /
+``warp_lookup_multi`` (csrc/warp_lookup.cu).
 
 Every test here is marked ``cuda`` and skips without a CUDA device (a
 CUDA kernel has no CPU mode). The file imports nothing of JAX, so it also
@@ -92,3 +94,94 @@ def test_frame_on_card_matches_cpu(scene, name):
     cpu = slab_sweep.render_fast_frame(vol_c, sv_c, *args, **kw, device="cpu")
     close = (gpu - cpu).abs().amax(-1) <= 1.5 / 255.0
     assert float(close.float().mean()) > 0.995
+
+
+# --------------------------------------------------------------------------
+# the lookup kernels (csrc/warp_lookup.cu)
+# --------------------------------------------------------------------------
+
+def _recorded(monkeypatch, module, name):
+    """Wrap ``module.name`` so each call's arguments are kept."""
+    calls = []
+    real = getattr(module, name)
+
+    def rec(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(module, name, rec)
+    return calls
+
+
+@pytest.mark.parametrize("name", list(POSES))
+def test_warp_lookup_kernel_matches_plain(scene, monkeypatch, name):
+    """sweep_first_hit's table and lin at 640x360: bitwise (a gather)."""
+    g, vol, sv, lay = scene
+    cam = _camera(name)
+    calls = _recorded(monkeypatch, slab_sweep, "warp_lookup")
+    before = warp_kernel.warp_lookup.launches
+    hit, t, _, _ = slab_sweep.sweep_first_hit(
+        vol, g.origin.cpu().numpy(), float(g.voxel_size.cpu()),
+        cam.get_pos(), cam.get_view(), 45.0, W / H, W, H, layouts=lay,
+        device="cuda")
+    assert warp_kernel.warp_lookup.launches == before + 1
+    (table, lin), = calls
+    assert table.is_cuda and lin.shape == (H, W)
+    out = warp_kernel.warp_lookup(table, lin)
+    ref = warp_kernel.warp_lookup_reference(table, lin)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert hit.any() and bool(torch.isfinite(t).all())
+
+
+@pytest.mark.parametrize("theta,phi", [(0.9, 0.8), (-0.9, 0.8 + np.pi)])
+def test_warp_lookup_multi_kernel_matches_plain(scene, monkeypatch, theta,
+                                                phi):
+    """The exact frame's three planes at 640x360 (flip True and False)."""
+    from ray_tracing_octrees_tpu_torch.trace import fast_exact
+
+    g, vol, sv, lay = scene
+    cam = Camera(theta=theta, phi=phi, radius=2.0)
+    calls = _recorded(monkeypatch, fast_exact, "warp_lookup_multi")
+    before = warp_kernel.warp_lookup_multi.launches
+    img, stats = fast_exact.render_fast_exact_frame(
+        vol, sv, g.origin.cpu().numpy(), float(g.voxel_size.cpu()),
+        cam.get_pos(), cam.get_view(), 45.0, W / H, W, H,
+        light_dir=tuple(-c for c in TO_LIGHT), with_stats=True, layouts=lay,
+        device="cuda")
+    assert warp_kernel.warp_lookup_multi.launches == before + 1
+    assert stats["overflow"] == 0 and stats["unresolved"] == 0
+    (planes, lin), = calls
+    assert planes.shape[0] == 3 and lin.shape == (H, W)
+    out = warp_kernel.warp_lookup_multi(planes, lin)
+    ref = warp_kernel.warp_lookup_multi_reference(planes, lin)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert (img[..., :3].amax(-1) > 0).any()
+
+
+@pytest.mark.parametrize("which", ["narrow", "all_miss", "no_miss"])
+def test_lookup_kernels_edge_cases(scene, which):
+    """A table narrower than 1024 columns, and lin fields with every pixel
+    a miss or none: both kernels bitwise equal to their plain versions."""
+    gen = torch.Generator().manual_seed(3)
+    th, tw = (300, 700) if which == "narrow" else (256, 1024)
+    tables = torch.rand((3, th, tw), generator=gen).cuda()
+    iu = torch.randint(0, th, (H, W), generator=gen, dtype=torch.int32)
+    iv = torch.randint(0, tw, (H, W), generator=gen, dtype=torch.int32)
+    lin = (iu << 10) | iv
+    if which == "narrow":
+        lin[::7] = -1
+    elif which == "all_miss":
+        lin = torch.full((H, W), -1, dtype=torch.int32)
+    lin = lin.cuda()
+    one = warp_kernel.warp_lookup(tables[0], lin)
+    multi = warp_kernel.warp_lookup_multi(tables, lin)
+    torch.cuda.synchronize()
+    assert torch.equal(one, warp_kernel.warp_lookup_reference(tables[0], lin))
+    assert torch.equal(multi,
+                       warp_kernel.warp_lookup_multi_reference(tables, lin))
+    if which == "all_miss":
+        assert bool((one == -1).all()) and bool((multi[1:] == 0).all())
+    if which == "no_miss":
+        assert bool((one >= 0).all())

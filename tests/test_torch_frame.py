@@ -133,6 +133,7 @@ def _entry_points():
     from ray_tracing_octrees_tpu_torch.core import cache, grid
     from ray_tracing_octrees_tpu_torch.render import camera
     from ray_tracing_octrees_tpu_torch import convert
+    from ray_tracing_octrees_tpu_torch.trace import fast_exact
 
     vol = np.zeros((8, 8, 8), np.float32)
     vol[3:5, 3:5, 3:5] = 1
@@ -149,6 +150,17 @@ def _entry_points():
         "render_fast_frame": lambda: ts.render_fast_frame(
             vol, None, (-0.5, -0.5, -0.5), 1 / 8, cam.get_pos(),
             cam.get_view(), 45.0, 1.0, 16, 16),
+        "sweep_first_hit": lambda: ts.sweep_first_hit(
+            vol, (-0.5, -0.5, -0.5), 1 / 8, cam.get_pos(), cam.get_view(),
+            45.0, 1.0, 16, 16),
+        "render_fast_exact_frame": lambda: fast_exact.render_fast_exact_frame(
+            vol, None, (-0.5, -0.5, -0.5), 1 / 8, cam.get_pos(),
+            cam.get_view(), 45.0, 1.0, 16, 16),
+        "fast_exact_first_hit": lambda: fast_exact.fast_exact_first_hit(
+            vol, (-0.5, -0.5, -0.5), 1 / 8, cam.get_pos(), cam.get_view(),
+            45.0, 1.0, 16, 16),
+        "pyramid_from_numpy": lambda: convert.pyramid_from_numpy(
+            [vol.astype(np.uint8)]),
     }
 
 
@@ -170,7 +182,9 @@ def test_port_imports_no_jax():
     code = ("import sys; import ray_tracing_octrees_tpu_torch.trace.slab_sweep, "
             "ray_tracing_octrees_tpu_torch.core.cache, "
             "ray_tracing_octrees_tpu_torch.convert, "
-            "ray_tracing_octrees_tpu_torch.trace.fmad_check; "
+            "ray_tracing_octrees_tpu_torch.trace.fmad_check, "
+            "ray_tracing_octrees_tpu_torch.trace.fast_exact, "
+            "ray_tracing_octrees_tpu_torch.trace.octree_trace; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ray_tracing_octrees_tpu' "
             "or m.startswith('ray_tracing_octrees_tpu.')]; "
