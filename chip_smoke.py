@@ -35,7 +35,15 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               radius-2.0 poses, each bitwise against its plain version;
               their times beside the byte bound, the plain version and one
               torch.take of the decoded index
-  11. lines   the kernels JSON line, the nvidia-smi line, and last the
+  11. experiments  the six warp experiments' drivers (tools/exp_*warp*),
+              each run("cuda") once at 1920x1088 with every launch count
+              set to 0 before it and read after it; then every wrapper of
+              csrc/exp_warp.cu bitwise (f32 bit patterns) against its plain
+              version on the drivers' inputs and on seeded edge fields
+              (windows that clamp, all-invalid tiles, H % 128 != 0 for the
+              two-pass warp); each row's kernel ms beside its byte bound,
+              its plain version and one torch.take of the flat index
+  12. lines   the kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line
 
 Imports nothing of JAX or of the JAX package. Without a CUDA device, or
@@ -87,25 +95,28 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters: int, windows: int = 3) -> float:
-    """Device time of one ``fn()`` call (CUDA events): the best of
-    ``windows`` windows of ``iters`` back-to-back calls, after
-    ``iters // 4 + 1`` calls that warm the card's clocks and caches."""
+    """Device time of one ``fn()`` call by the port's CUDA event timer
+    (``tools.event_ms``): the best of ``windows`` windows of ``iters``
+    back-to-back calls, after ``iters // 4 + 1`` warm-up calls."""
+    from ray_tracing_octrees_tpu_torch.tools import event_ms
+
+    return event_ms(lambda _k: fn(), iters, windows)
+
+
+def distinct(flat, valid) -> int:
+    """How many distinct texels the flat indices ``flat`` name where
+    ``valid``: what a bound reads once, whatever a kernel reads again."""
     import torch
 
-    for _ in range(iters // 4 + 1):
-        fn()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / iters)
-    return best
+    return int(torch.unique(flat[valid]).numel())
+
+
+def bound(nbytes: int, ops: int):
+    """(least ms, what bounds it): ``nbytes`` at the memory rate or ``ops``
+    at the f32 rate, the larger."""
+    b_ms = nbytes / PEAK_BYTES_S * 1e3
+    o_ms = ops / PEAK_F32_S * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
 
 
 def profiled(fn, iters: int):
@@ -213,6 +224,241 @@ def recorded(module, name):
     return calls, lambda: setattr(module, name, real)
 
 
+# The warp experiments' rows of the kernel table: (the TPU kernel body
+# they replace, the CUDA kernels their wrappers launch)
+EXP_ROWS = {
+    4: ("tools/exp_onehot_warp.py:39", ("onehot_window_kernel",)),
+    5: ("tools/exp_warp_ablate.py:44", ("ablate_kernel",)),
+    6: ("tools/exp_warp_kernel.py:30", ("row_window_kernel",)),
+    7: ("tools/exp_warp_tune.py:27", ("onehot_window_kernel",)),
+    8: ("tools/exp_warp_tune2.py:42", ("onehot_window_kernel",)),
+    9: ("tools/exp_warp2pass.py:34", ("row_window_kernel",
+                                      "col_window_kernel")),
+}
+EXP_LIBRARY = "torch.take of the flat index (equal where the window covers)"
+
+
+def experiments(smi: str) -> list:
+    """Phase 11: the warp experiments' drivers on the card, every kernel
+    of csrc/exp_warp.cu against its plain version, and each row's times.
+    Returns the rows 4-9 of the kernels JSON line."""
+    import torch
+
+    from ray_tracing_octrees_tpu_torch.tools import (
+        cases, exp_onehot_warp, exp_warp2pass, exp_warp_ablate,
+        exp_warp_kernel, exp_warp_tune, exp_warp_tune2,
+    )
+
+    wrappers = cases.wrappers()
+    row_names = {row: [n for n, (r, _) in wrappers.items() if r == row]
+                 for row in EXP_ROWS}
+    drivers = {4: exp_onehot_warp, 5: exp_warp_ablate, 6: exp_warp_kernel,
+               7: exp_warp_tune, 8: exp_warp_tune2, 9: exp_warp2pass}
+    launches = {}    # per row: its wrappers' launches in its own driver
+    results = {}
+    for row, mod in drivers.items():
+        for _, fn in wrappers.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        res = mod.run("cuda")
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, (_, fn) in wrappers.items()}
+        results[row] = res
+        launches[row] = {n: got[n] for n in row_names[row]}
+        for line in res["lines"]:
+            log("experiments", f"{mod.__name__.rsplit('.', 1)[1]}: {line}")
+        log("experiments", f"row {row} driver in "
+            f"{time.perf_counter() - t:.2f} s; launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        missing = [n for n in row_names[row] if got[n] == 0]
+        if missing:
+            raise RuntimeError(f"row {row}'s driver launched no {missing}")
+
+    # every wrapper against its plain version, on the drivers' inputs and
+    # on the edge fields
+    def one_hot_inputs(row):
+        inp = results[row]["inputs"]
+        return dict(t_hl=inp["t_hl"][0] if row == 4 else inp["t_hl"],
+                    lin=inp["lins"][0])
+
+    inputs = {"row 4 driver": one_hot_inputs(4),
+              "row 5 driver": one_hot_inputs(5),
+              "row 7 driver": one_hot_inputs(7),
+              "row 6 driver": {k: results[6]["inputs"][k]
+                               for k in ("table", "iu", "iv")},
+              "row 9 driver": dict(t9=results[9]["inputs"]["table"],
+                                   iustar=results[9]["inputs"]["iustar"],
+                                   iv9=results[9]["inputs"]["iv"]),
+              "edge fields": cases.edge_inputs("cuda")}
+    shares = {row: {} for row in EXP_ROWS}
+    max_err = {row: 0.0 for row in EXP_ROWS}
+    for label, kw in inputs.items():
+        for row, name, fn, plain, args in cases.kernel_cases(**kw):
+            out = fn(*args)
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            share = cases.bits_equal_share(out, ref)
+            shares[row][f"{label}: {name}"] = share
+            max_err[row] = max(max_err[row],
+                               float((out - ref).abs().max()))
+            if share != 1.0:
+                raise RuntimeError(f"{name} on the {label} differs from its "
+                                   f"plain version: bitwise share {share}")
+    two = inputs["row 9 driver"]
+    out = exp_warp2pass.warp_two_pass(two["t9"], two["iustar"], two["iv9"])
+    ref = exp_warp2pass.warp_two_pass_reference(two["t9"], two["iustar"],
+                                                two["iv9"])
+    if cases.bits_equal_share(out, ref) != 1.0:
+        raise RuntimeError("warp_two_pass differs from its plain version")
+    log("experiments", "bitwise equal to the plain versions on "
+        + ", ".join(f"row {r}: {len(s)} cases" for r, s in shares.items()))
+
+    # times at the drivers' shapes: each row's variants, the first its
+    # headline, with the plain version and torch.take timed beside it.
+    # Each bound reads the distinct texels the variant's pixels read (the
+    # window rule's flat index, or the plain version run on a table of
+    # texel numbers 1..N, which returns each pixel's texel and 0 for none),
+    # the index fields and the output once; its operations are the window
+    # rule's ~10 index and add operations a pixel, at the f32 rate (the
+    # data sheet gives no int32 rate).
+    o4, o5, o7 = (one_hot_inputs(r) for r in (4, 5, 7))
+    r6, r9 = results[6]["inputs"], results[9]["inputs"]
+    n_px = o4["lin"].numel()
+    TW = exp_onehot_warp.TW
+
+    def one_hot(o, fn, *args):
+        return lambda: fn(o["t_hl"], o["lin"], *args)
+
+    def one_hot_bound(o, ty, tx, win):
+        inv, _, iv, umin, rel_u = exp_onehot_warp.window_rows(
+            o["lin"], ty, tx, win)
+        texels = distinct((umin + rel_u).long() * TW + iv, ~inv)
+        return 8 * n_px + 4 * texels, 10 * n_px     # hi and lo bf16 planes
+
+    def ablate_bound(kind):
+        if kind == "null":
+            return 4 * n_px, n_px
+        if kind != "twload":
+            return 8 * n_px, 10 * n_px
+        inv, _, _, umin, _ = exp_onehot_warp.window_rows(o5["lin"], 8, 128,
+                                                         exp_warp_ablate.WIN)
+        lane = torch.arange(o5["lin"].shape[1], device=inv.device) % 128
+        return (8 * n_px + 2 * distinct(umin.long() * TW + lane, ~inv),
+                10 * n_px)
+
+    def numbered_texels(plain, table, *idx):
+        num = torch.arange(1, table.numel() + 1, dtype=torch.float32,
+                           device=table.device).reshape(table.shape)
+        got = plain(num, *idx)
+        return distinct(got.long(), got > 0)
+
+    # row 9 is warp_two_pass as a function: T2's texels, iustar, iv and
+    # out; its intermediate M is not the function's to move
+    variants = {
+        4: [(f"onehot_warp w{w}", one_hot(o4, exp_onehot_warp.onehot_warp, w),
+             one_hot_bound(o4, 8, 128, w)) for w in (64, 128)],
+        5: [(f"ablate {k}", one_hot(o5, exp_warp_ablate.make_call(k)),
+             ablate_bound(k)) for k in ("twload", "null", "intops", "select")],
+        6: [("warp_pallas", lambda: exp_warp_kernel.warp_pallas(
+            r6["table"], r6["iu"], r6["iv"]),
+            (12 * n_px + 4 * numbered_texels(
+                exp_warp_kernel.warp_pallas_reference, r6["table"], r6["iu"],
+                r6["iv"]), 10 * n_px))],
+        7: [(f"warp ({ty},{tx}) w{w}",
+             one_hot(o7, exp_warp_tune.warp, ty, tx, w),
+             one_hot_bound(o7, ty, tx, w))
+            for ty, tx, w in ((8, 128, 64), (16, 128, 64), (32, 128, 128))],
+        8: [(f"warp_slim ({ty},{tx}) w{w}",
+             one_hot(o7, exp_warp_tune2.warp_slim, ty, tx, w),
+             one_hot_bound(o7, ty, tx, w))
+            for ty, tx, w in ((16, 128, 64), (32, 128, 128))],
+        9: [("warp_two_pass", lambda: exp_warp2pass.warp_two_pass(
+            r9["table"], r9["iustar"], r9["iv"]),
+            (4 * r9["iustar"].numel() + 8 * n_px + 4 * numbered_texels(
+                exp_warp2pass.warp_two_pass_reference, r9["table"],
+                r9["iustar"], r9["iv"]), 20 * n_px))],
+    }
+    plains = {
+        4: (lambda: exp_onehot_warp.onehot_warp_reference(
+            o4["t_hl"], o4["lin"], 64), results[4]["inputs"]["tables"][0],
+            o4["lin"]),
+        5: (lambda: exp_warp_ablate.ablate_reference(
+            o5["t_hl"], o5["lin"], "twload"), results[5]["inputs"]["table"],
+            o5["lin"]),
+        6: (lambda: exp_warp_kernel.warp_pallas_reference(
+            r6["table"], r6["iu"], r6["iv"]), r6["table"], r6["lin"]),
+        7: (lambda: exp_warp_tune.warp_reference(
+            o7["t_hl"], o7["lin"], 8, 128, 64),
+            results[7]["inputs"]["table"], o7["lin"]),
+        8: (lambda: exp_warp_tune2.warp_slim_reference(
+            o7["t_hl"], o7["lin"], 16, 128, 64),
+            results[8]["inputs"]["table"], o7["lin"]),
+        9: (lambda: exp_warp2pass.warp_two_pass_reference(
+            r9["table"], r9["iustar"], r9["iv"]), r9["table"], r9["lin"]),
+    }
+    rows = []
+    for row, vs in variants.items():
+        timed = []
+        for label, kern, (nbytes, ops) in vs:
+            k_ms = cuda_ms(kern, 200)
+            _, kper = profiled(kern, 50)
+            per = {n: sum(v for k, v in kper.items() if n in k)
+                   for n in EXP_ROWS[row][1]}
+            dev_ms = sum(per.values())
+            b_ms, b_by = bound(nbytes, ops)
+            timed.append(dict(variant=label, ms=dev_ms or k_ms,
+                              ms_source=MS_SOURCE[bool(dev_ms)],
+                              wrapper_ms=k_ms, kernel_device_ms=per,
+                              bound_ms=b_ms, bound_by=b_by,
+                              bound_bytes=nbytes))
+            log("experiments", f"[{smi}] row {row} {label}: kernel "
+                + (f"{dev_ms:.4f} ms under the profiler ("
+                   + ", ".join(f"{n} {v:.4f}" for n, v in per.items()) + ")"
+                   if dev_ms else f"not measured: profiler kernels "
+                   f"{list(kper)[:3]}")
+                + f", wrapper {k_ms:.4f} ms (CUDA events), bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}; {nbytes} bytes)")
+        plain, table, lin = plains[row]
+        p_ms = cuda_ms(plain, 10)
+        flat = torch.where(lin < 0, 0, lin).reshape(-1).long()
+        l_ms = cuda_ms(lambda: torch.take(table, flat), 200)
+        _, lper = profiled(lambda: torch.take(table, flat), 50)
+        head = timed[0]
+        names = row_names[row]
+        rows.append({
+            "name": "/".join(names),
+            "row": row,
+            "route": "cuda",
+            "source": "ray_tracing_octrees_tpu_torch/trace/csrc/exp_warp.cu",
+            "replaces": EXP_ROWS[row][0],
+            "launches": sum(launches[row].values()),
+            "launches_by_wrapper": launches[row],
+            "max_abs_err": max_err[row],
+            "match_bar": "bitwise equal (share 1.0)",
+            "match_share": min(shares[row].values()),
+            "cases": len(shares[row]),
+            "match_ok": True,
+            "headline": head["variant"],
+            "ms": head["ms"],
+            "ms_source": head["ms_source"],
+            "wrapper_ms": head["wrapper_ms"],
+            "kernel_device_ms": head["kernel_device_ms"],
+            "plain_ms": p_ms,
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": l_ms,
+            "library_device_ms": sum(lper.values()) or None,
+            "library_call": EXP_LIBRARY,
+            "variants": timed,
+            "driver_ms": results[row]["ms"],
+        })
+        log("experiments", f"[{smi}] row {row} {head['variant']}: plain "
+            f"{p_ms:.4f} ms, torch.take {l_ms:.4f} ms "
+            f"({sum(lper.values()):.4f} ms under the profiler); launches "
+            f"{rows[-1]['launches']}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -250,7 +496,7 @@ def main() -> int:
 
     # 2. build: one nvcc per kernel source, all started together
     t = time.perf_counter()
-    kernels = ["warp_frame", "warp_lookup"]
+    kernels = ["warp_frame", "warp_lookup", "exp_warp"]
     _build.build(kernels)
     log("build", f"{kernels} in {time.perf_counter() - t:.2f} s wall; "
         + ", ".join(f"{k} {s:.2f} s" for k, s in _build.BUILD_SECONDS.items()))
@@ -396,11 +642,17 @@ def main() -> int:
     slab_sweep.shadow_volume(vol, TO_LIGHT, device=dev)
     torch.cuda.synchronize()
     shadow_s = time.perf_counter() - t
-    bytes_moved = table.numel() * 4 + 35 * 4 + WIDTH * HEIGHT * 4
+    # the distinct texels the frame's pixels read, the scalars, the output
+    th_, tw_ = table.shape
+    *_, inv1, iu1, iv1 = warp_kernel._texels(
+        th_, tw_, warp_kernel._check(table, kscal, axis_world, WIDTH, HEIGHT),
+        axis_world, WIDTH, HEIGHT, dev)
+    texels1 = distinct(iu1.long() * tw_ + iv1, ~inv1)
+    bytes_moved = texels1 * 4 + 35 * 4 + WIDTH * HEIGHT * 4
     ops = WARP_OPS_PER_PIXEL * WIDTH * HEIGHT
     bound_bytes_ms = bytes_moved / PEAK_BYTES_S * 1e3
     bound_ops_ms = ops / PEAK_F32_S * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    bound_ms, bound_by = bound(bytes_moved, ops)
     log("timing", f"[{smi}] frame {frame_ms:.3f} ms (best of 3 windows of "
         f"{N_FRAMES}: {', '.join(f'{w:.3f}' for w in windows)}), "
         f"{mrays:.1f} Mrays/s (2 rays per pixel); host enqueue "
@@ -409,7 +661,8 @@ def main() -> int:
         + (f"{warp_dev_ms:.4f} ms under the profiler" if warp_dev_ms
            else "not measured") + "), plain "
         f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us (bytes "
-        f"{bound_bytes_ms * 1e3:.2f} us, f32 ops {bound_ops_ms * 1e3:.2f} us); "
+        f"{bound_bytes_ms * 1e3:.2f} us with {texels1} distinct texels, "
+        f"f32 ops {bound_ops_ms * 1e3:.2f} us); "
         f"sweep + pack {sweep_ms:.3f} ms; shadow volume {shadow_s:.3f} s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -617,17 +870,16 @@ def main() -> int:
         l_ms = cuda_ms(lambda: torch.take(tab, flat), 200)
         _, lper = profiled(lambda: torch.take(tab, flat), 50)
         n_px = ln.numel()
-        bound_bytes_ms = (n_px * (4 + 4 * planes)
-                          + planes * th * tw * 4) / PEAK_BYTES_S * 1e3
-        # a shift, a mask, two clamps and an index product per pixel
-        bound_ops_ms = 5 * n_px / PEAK_F32_S * 1e3
+        texels = distinct(flat[0] if planes > 1 else flat, ln >= 0)
+        # lin, the output planes and each plane's distinct texels; a
+        # shift, a mask, two clamps and an index product per pixel
+        l_bound, l_by = bound(n_px * (4 + 4 * planes) + planes * texels * 4,
+                              5 * n_px)
         lookups[kname] = dict(
             res=res, ms=dev_ms or k_ms, wrapper_ms=k_ms,
             plain_ms=p_ms, library_ms=l_ms,
             library_device_ms=sum(lper.values()) or None,
-            bound_ms=max(bound_bytes_ms, bound_ops_ms),
-            bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
-            else "operations")
+            bound_ms=l_bound, bound_by=l_by)
         log("lookups", f"[{smi}] {kname} kernel {k_ms:.4f} ms (CUDA "
             f"events over wrapper calls; the kernel alone "
             + (f"{dev_ms:.4f} ms under the profiler" if dev_ms else
@@ -636,9 +888,12 @@ def main() -> int:
             f"{p_ms:.4f} ms, torch.take {l_ms:.4f} ms (its kernels "
             f"{sum(lper.values()):.4f} ms under the profiler), bound "
             f"{lookups[kname]['bound_ms'] * 1e3:.2f} us ({planes} plane(s), "
-            f"{n_px} px, table {th}x{tw})")
+            f"{n_px} px, {texels} distinct texels of a {th}x{tw} table)")
 
-    # 11. lines
+    # 11. the warp experiments
+    exp_rows = experiments(smi)
+
+    # 12. lines
     record = {"kernels": [{
         "name": "warp_frame",
         "route": "cuda",
@@ -656,7 +911,7 @@ def main() -> int:
         "wrapper_ms": warp_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "bound_by": bound_by,
         "library_ms": None,
     }] + [{
         "name": kname,
@@ -683,7 +938,7 @@ def main() -> int:
         ("warp_lookup", lookups["warp_lookup"],
          sfh_launches["warp_lookup"], 1),
         ("warp_lookup_multi", lookups["warp_lookup_multi"],
-         ex_launches["warp_lookup_multi"], n_exact))],
+         ex_launches["warp_lookup_multi"], n_exact))] + exp_rows,
         "frame_ms": frame_ms, "mrays_per_s": mrays, "sweep_ms": sweep_ms,
         "sweep_first_hit_ms": sfh_ms, "exact_frame_ms": exact_ms,
         "exact_mrays_per_s": exact_mrays, "exact_stage_ms": stage_ms,

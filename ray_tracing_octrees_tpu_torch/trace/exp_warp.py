@@ -1,0 +1,82 @@
+"""Launchers of ``csrc/exp_warp.cu``: the warp experiments' four kernels.
+
+The public wrappers live in :mod:`ray_tracing_octrees_tpu_torch.tools`
+(one module per retired TPU experiment under ``tools/``). Each checks its
+arguments, runs its plain PyTorch version on CPU tensors, and on CUDA
+tensors calls one launcher here and counts the launch. A launcher takes
+checked, contiguous CUDA tensors, allocates the output, launches on the
+current stream and raises if the launch fails. There is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ray_tracing_octrees_tpu_torch.trace import _build
+
+_c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
+_ARGTYPES = {
+    "onehot_window_launch": [_c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_int,
+                             _c_int, _c_int, _c_int, _c_int, _c_ptr],
+    "ablate_launch": [_c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_int, _c_int,
+                      _c_int, _c_ptr],
+    "row_window_launch": [_c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
+                          _c_int, _c_int, _c_int, _c_ptr],
+    "col_window_launch": [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int,
+                          _c_int, _c_ptr],
+}
+
+
+def _call(entry: str, like: torch.Tensor, shape, *args) -> torch.Tensor:
+    """Allocate f32 ``shape`` on ``like``'s device and run ``entry`` with
+    ``args`` (ints and tensors, the output pointer placed by ``None``)."""
+    fn = getattr(_build.load("exp_warp"), entry)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[entry]
+        fn.restype = ctypes.c_int
+    dev = like.device
+    with torch.cuda.device(dev):
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+        cargs = [out.data_ptr() if a is None else
+                 a.data_ptr() if torch.is_tensor(a) else a for a in args]
+        rc = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {rc}")
+    return out
+
+
+def onehot_window(t_hl: torch.Tensor, lin: torch.Tensor, ty: int, tx: int,
+                  win: int) -> torch.Tensor:
+    """Kernel 1 on bf16 ``t_hl`` [2 TH, TW] and int32 ``lin`` [H, W]."""
+    th, tw = t_hl.shape[0] // 2, t_hl.shape[1]
+    h, w = lin.shape
+    return _call("onehot_window_launch", lin, (h, w), t_hl, th, tw, lin, None,
+                 h, w, ty, tx, win)
+
+
+def ablate(t_hl: torch.Tensor, lin: torch.Tensor, kind: int) -> torch.Tensor:
+    """Kernel 2, ablation ``kind``: 0 null, 1 intops, 2 twload, 3 select."""
+    th, tw = t_hl.shape[0] // 2, t_hl.shape[1]
+    h, w = lin.shape
+    return _call("ablate_launch", lin, (h, w), t_hl, th, tw, lin, None, h, w,
+                 kind)
+
+
+def row_window(table: torch.Tensor, row_idx: torch.Tensor,
+               col_idx: Optional[torch.Tensor], win: int) -> torch.Tensor:
+    """Kernel 3 on f32 ``table`` [TH, C]; ``col_idx`` None reads column x."""
+    th, tc = table.shape
+    h, w = row_idx.shape
+    return _call("row_window_launch", row_idx, (h, w), table, th, tc, row_idx,
+                 0 if col_idx is None else col_idx, None, h, w, win)
+
+
+def col_window(m_rows: torch.Tensor, col_idx: torch.Tensor,
+               win: int) -> torch.Tensor:
+    """Kernel 4 on f32 ``m_rows`` [H, V] and int32 ``col_idx`` [H, W]."""
+    h, w = col_idx.shape
+    return _call("col_window_launch", col_idx, (h, w), m_rows,
+                 m_rows.shape[1], col_idx, None, h, w, win)

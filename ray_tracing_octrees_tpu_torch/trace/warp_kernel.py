@@ -155,10 +155,11 @@ def warp_frame_reference(table: torch.Tensor, kscal, axis_world: int,
     return _reference(table, ks, axis_world, width, height, has_shadow)
 
 
-def _reference(table, ks, axis_world, width, height, has_shadow):
+def _texels(th, tw, ks, axis_world, width, height, dev):
+    """The kernel's ray and texel per pixel: (scalars on ``dev``, ray
+    direction components, behind, invalid, iu, iv), iu = iv = 0 where
+    invalid."""
     f32 = torch.float32
-    dev = table.device
-    th, tw = table.shape
     k = torch.as_tensor(ks, device=dev)
     sx, sy = (float(v) for v in _pixel_steps(width, height))
     yy = torch.arange(height, dtype=f32, device=dev)[:, None]
@@ -183,6 +184,17 @@ def _reference(table, ks, axis_world, width, height, has_shadow):
     invalid = behind | (uu < 0) | (uu >= th) | (vv < 0) | (vv >= tw)
     iu = torch.where(invalid, 0, uu.to(torch.int32).clamp(0, th - 1))
     iv = torch.where(invalid, 0, vv.to(torch.int32).clamp(0, tw - 1))
+    return k, d3, behind, invalid, iu, iv
+
+
+def _reference(table, ks, axis_world, width, height, has_shadow):
+    f32 = torch.float32
+    dev = table.device
+    th, tw = table.shape
+    k, d3, behind, invalid, iu, iv = _texels(th, tw, ks, axis_world, width,
+                                             height, dev)
+    vox, eye_s = k[_KS_VOX], k[_KS_EYE_S]
+    d_s = d3[_SAB_IDX[axis_world][0]]
     val = torch.where(invalid, -1.0, table[iu.long(), iv.long()])
 
     hit = (val >= 0.0) & ~behind

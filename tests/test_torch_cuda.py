@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions:
-``warp_frame`` (csrc/warp_frame.cu) and ``warp_lookup`` /
-``warp_lookup_multi`` (csrc/warp_lookup.cu).
+``warp_frame`` (csrc/warp_frame.cu), ``warp_lookup`` /
+``warp_lookup_multi`` (csrc/warp_lookup.cu), and the warp experiments'
+four kernels (csrc/exp_warp.cu) through every wrapper of
+``ray_tracing_octrees_tpu_torch/tools``.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (a
 CUDA kernel has no CPU mode). The file imports nothing of JAX, so it also
@@ -185,3 +187,104 @@ def test_lookup_kernels_edge_cases(scene, which):
         assert bool((one == -1).all()) and bool((multi[1:] == 0).all())
     if which == "no_miss":
         assert bool((one >= 0).all())
+
+
+# --------------------------------------------------------------------------
+# the warp experiments' kernels (csrc/exp_warp.cu)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def exp_edge():
+    """The seeded edge fields of tools/cases.py on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from ray_tracing_octrees_tpu_torch.tools import cases
+
+    return cases.edge_inputs("cuda")
+
+
+def _hold_cases(case_list, rows):
+    """Every case of ``rows``: one launch counted, bitwise equal to the
+    plain version; returns how many ran."""
+    from ray_tracing_octrees_tpu_torch.tools import cases
+
+    n = 0
+    for row, name, fn, plain, args in case_list:
+        if row not in rows:
+            continue
+        before = fn.launches
+        out = fn(*args)
+        assert fn.launches == before + 1, name
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        assert out.is_cuda and out.dtype == torch.float32, name
+        assert cases.bits_equal_share(out, ref) == 1.0, name
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("row", [4, 5, 6, 7, 8, 9])
+def test_exp_warp_kernels_match_plain_on_edge_fields(exp_edge, row):
+    """Windows that clamp, indices past the table, all-invalid tiles,
+    -0.0 texels, and H % 128 != 0 for the two-pass warp."""
+    from ray_tracing_octrees_tpu_torch.tools import cases, exp_warp2pass
+
+    assert _hold_cases(cases.kernel_cases(**exp_edge), {row}) > 0
+    if row == 9:
+        e = exp_edge
+        out = exp_warp2pass.warp_two_pass(e["t9"], e["iustar"], e["iv9"])
+        ref = exp_warp2pass.warp_two_pass_reference(e["t9"], e["iustar"],
+                                                    e["iv9"])
+        torch.cuda.synchronize()
+        assert cases.bits_equal_share(out, ref) == 1.0
+        assert bool((ref != 0).any())
+
+
+DRIVERS = {"exp_onehot_warp": (4, dict(dim=64, width=256, height=128)),
+           "exp_warp_ablate": (5, dict(width=256, height=128)),
+           "exp_warp_kernel": (6, dict(dim=64, width=256, height=128)),
+           "exp_warp_tune": (7, dict(width=256, height=128)),
+           "exp_warp_tune2": (8, dict(width=256, height=128)),
+           "exp_warp2pass": (9, dict(dim=64, width=256, height=136))}
+
+
+@pytest.mark.parametrize("module", list(DRIVERS))
+def test_exp_warp_driver_on_card(module):
+    """Each driver's run("cuda") at a small size launches its kernels and
+    times them; every kernel equals its plain version on its inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import importlib
+
+    from ray_tracing_octrees_tpu_torch.tools import cases
+
+    mod = importlib.import_module(
+        f"ray_tracing_octrees_tpu_torch.tools.{module}")
+    row, kw = DRIVERS[module]
+    wrappers = cases.wrappers()
+    before = {n: fn.launches for n, (_, fn) in wrappers.items()}
+    res = mod.run("cuda", **kw)
+    torch.cuda.synchronize()
+    launched = {n for n, (r, fn) in wrappers.items()
+                if r == row and fn.launches > before[n]}
+    assert launched, module
+    assert res["ms"] and all(v > 0 for v in res["ms"].values())
+    inp = res["inputs"]
+    if row in (4, 5, 7, 8):
+        t_hl = inp["t_hl"][0] if row == 4 else inp["t_hl"]
+        kc = cases.kernel_cases(t_hl=t_hl, lin=inp["lins"][0])
+    elif row == 6:
+        kc = cases.kernel_cases(table=inp["table"], iu=inp["iu"],
+                                iv=inp["iv"])
+    else:
+        kc = cases.kernel_cases(t9=inp["table"], iustar=inp["iustar"],
+                                iv9=inp["iv"])
+    assert _hold_cases(kc, {4, 5, 6, 7, 8, 9}) > 0
+
+
+def test_exp_warp_wrappers_raise_for_mixed_devices(exp_edge):
+    from ray_tracing_octrees_tpu_torch.tools import exp_onehot_warp
+
+    with pytest.raises(ValueError):
+        exp_onehot_warp.onehot_warp(exp_edge["t_hl"].cpu(), exp_edge["lin"],
+                                    64)

@@ -161,7 +161,20 @@ def _entry_points():
             45.0, 1.0, 16, 16),
         "pyramid_from_numpy": lambda: convert.pyramid_from_numpy(
             [vol.astype(np.uint8)]),
+        **{f"tools.{name}.run": _driver_run(name) for name in (
+            "exp_onehot_warp", "exp_warp_ablate", "exp_warp_tune",
+            "exp_warp_tune2", "exp_warp_kernel", "exp_warp2pass")},
     }
+
+
+def _driver_run(name):
+    """A warp experiment driver's ``run()`` with no device argument."""
+    import importlib
+
+    def call():
+        return importlib.import_module(
+            f"ray_tracing_octrees_tpu_torch.tools.{name}").run()
+    return call
 
 
 @pytest.mark.parametrize("entry", list(_entry_points()))
@@ -184,7 +197,11 @@ def test_port_imports_no_jax():
             "ray_tracing_octrees_tpu_torch.convert, "
             "ray_tracing_octrees_tpu_torch.trace.fmad_check, "
             "ray_tracing_octrees_tpu_torch.trace.fast_exact, "
-            "ray_tracing_octrees_tpu_torch.trace.octree_trace; "
+            "ray_tracing_octrees_tpu_torch.trace.octree_trace, "
+            "ray_tracing_octrees_tpu_torch.tools.cases, "
+            "ray_tracing_octrees_tpu_torch.tools.exp_warp2pass, "
+            "ray_tracing_octrees_tpu_torch.tools.exp_warp_tune2, "
+            "ray_tracing_octrees_tpu_torch.tools.exp_warp_ablate; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ray_tracing_octrees_tpu' "
             "or m.startswith('ray_tracing_octrees_tpu.')]; "
