@@ -6,7 +6,9 @@
 Phases (each prints one flushed line; any failure raises, exit non-zero):
   1. device   require CUDA; print the card's name and power limit
   2. build    compile every CUDA kernel of the paths with nvcc (one process
-              per source, all started together)
+              per source, all started together); print each kernel's
+              registers and spills (ptxas -v) and refuse a spill in
+              csrc/exp_warp.cu
   3. scene    the reference's 256^3 sphere and its directional shadow volume
   4. frame    1920x1080 frames at the bench pose through render_fast_frame,
               with every kernel's launch count read around the run; the
@@ -41,8 +43,12 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               csrc/exp_warp.cu bitwise (f32 bit patterns) against its plain
               version on the drivers' inputs and on seeded edge fields
               (windows that clamp, all-invalid tiles, H % 128 != 0 for the
-              two-pass warp); each row's kernel ms beside its byte bound,
-              its plain version and one torch.take of the flat index
+              two-pass warp, index fields at a storage offset, a tile of
+              no instantiation, 45 tiles); each row's kernel ms beside its
+              byte bound, its plain version and one torch.take of the flat
+              index, warm (the same inputs back to back) and cold (rotating
+              through N_COLD copies of the index fields, over twice the
+              50 MB L2, so each launch finds them in device memory)
   12. lines   the kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line
 
@@ -52,8 +58,10 @@ without the port package beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +87,7 @@ MATCH_TOL = 1.5 / 255.0
 MATCH_SHARE = 0.995
 N_EXACT = 5           # exact frames per timed window
 EXACT_RADIUS = 2.0    # x extent: the bench angles inside the exact envelope
+N_COLD = 16           # copies of a row's index fields in its cold timings
 
 
 def log(phase: str, msg: str) -> None:
@@ -145,6 +154,33 @@ def profiled(fn, iters: int):
         if us > 0:
             per[e.key] = per.get(e.key, 0.0) + us / iters / 1e3
     return wall, per
+
+
+def rotating(fn, copies):
+    """``fn(*copies[k % len(copies)])`` on the k-th call: each call reads
+    other index fields, so with enough copies none is left in L2."""
+    k = itertools.count()
+    return lambda: fn(*copies[next(k) % len(copies)])
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel (mangled name): (registers, spill bytes)} from the output
+    of ``nvcc -Xptxas=-v``."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn] = (out.get(fn, (0, 0))[0], int(m.group(1))
+                       + int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn] = (int(m.group(1)), out.get(fn, (0, 0))[1])
+    return out
 
 
 def frame_classes(img):
@@ -248,6 +284,7 @@ def experiments(smi: str) -> list:
         cases, exp_onehot_warp, exp_warp2pass, exp_warp_ablate,
         exp_warp_kernel, exp_warp_tune, exp_warp_tune2,
     )
+    from ray_tracing_octrees_tpu_torch.trace import exp_warp
 
     wrappers = cases.wrappers()
     row_names = {row: [n for n, (r, _) in wrappers.items() if r == row]
@@ -255,21 +292,25 @@ def experiments(smi: str) -> list:
     drivers = {4: exp_onehot_warp, 5: exp_warp_ablate, 6: exp_warp_kernel,
                7: exp_warp_tune, 8: exp_warp_tune2, 9: exp_warp2pass}
     launches = {}    # per row: its wrappers' launches in its own driver
+    forms = {}       # per row: kernels 1 and 3's launches by form, the same
     results = {}
     for row, mod in drivers.items():
         for _, fn in wrappers.values():
             fn.launches = 0
+        for k in exp_warp.FORM_LAUNCHES:
+            exp_warp.FORM_LAUNCHES[k] = 0
         t = time.perf_counter()
         res = mod.run("cuda")
         torch.cuda.synchronize()
         got = {name: fn.launches for name, (_, fn) in wrappers.items()}
+        forms[row] = {k: v for k, v in exp_warp.FORM_LAUNCHES.items() if v}
         results[row] = res
         launches[row] = {n: got[n] for n in row_names[row]}
         for line in res["lines"]:
             log("experiments", f"{mod.__name__.rsplit('.', 1)[1]}: {line}")
         log("experiments", f"row {row} driver in "
             f"{time.perf_counter() - t:.2f} s; launches "
-            f"{ {k: v for k, v in got.items() if v} }")
+            f"{ {k: v for k, v in got.items() if v} }, by form {forms[row]}")
         missing = [n for n in row_names[row] if got[n] == 0]
         if missing:
             raise RuntimeError(f"row {row}'s driver launched no {missing}")
@@ -289,9 +330,12 @@ def experiments(smi: str) -> list:
               "row 9 driver": dict(t9=results[9]["inputs"]["table"],
                                    iustar=results[9]["inputs"]["iustar"],
                                    iv9=results[9]["inputs"]["iv"]),
-              "edge fields": cases.edge_inputs("cuda")}
+              **{f"edge set {k}": v
+                 for k, v in cases.edge_inputs("cuda").items()}}
     shares = {row: {} for row in EXP_ROWS}
     max_err = {row: 0.0 for row in EXP_ROWS}
+    for k in exp_warp.FORM_LAUNCHES:
+        exp_warp.FORM_LAUNCHES[k] = 0
     for label, kw in inputs.items():
         for row, name, fn, plain, args in cases.kernel_cases(**kw):
             out = fn(*args)
@@ -310,8 +354,13 @@ def experiments(smi: str) -> list:
                                                 two["iv9"])
     if cases.bits_equal_share(out, ref) != 1.0:
         raise RuntimeError("warp_two_pass differs from its plain version")
+    check_forms = {k: v for k, v in exp_warp.FORM_LAUNCHES.items() if v}
     log("experiments", "bitwise equal to the plain versions on "
-        + ", ".join(f"row {r}: {len(s)} cases" for r, s in shares.items()))
+        + ", ".join(f"row {r}: {len(s)} cases" for r, s in shares.items())
+        + f"; kernels 1 and 3 by form {check_forms}")
+    if not all(check_forms.get(f"{k} general") for k in ("onehot_window",
+                                                         "row_window")):
+        raise RuntimeError(f"a general form went unchecked: {check_forms}")
 
     # times at the drivers' shapes: each row's variants, the first its
     # headline, with the plain version and torch.take timed beside it.
@@ -327,7 +376,7 @@ def experiments(smi: str) -> list:
     TW = exp_onehot_warp.TW
 
     def one_hot(o, fn, *args):
-        return lambda: fn(o["t_hl"], o["lin"], *args)
+        return (lambda lin: fn(o["t_hl"], lin, *args)), (o["lin"],)
 
     def one_hot_bound(o, ty, tx, win):
         inv, _, iv, umin, rel_u = exp_onehot_warp.window_rows(
@@ -352,32 +401,37 @@ def experiments(smi: str) -> list:
         got = plain(num, *idx)
         return distinct(got.long(), got > 0)
 
-    # row 9 is warp_two_pass as a function: T2's texels, iustar, iv and
-    # out; its intermediate M is not the function's to move
+    # each variant: (label, call, its index fields, bound); call(*fields)
+    # runs it. Row 9 is warp_two_pass as a function: T2's texels, iustar,
+    # iv and out; its intermediate M is not the function's to move
     variants = {
-        4: [(f"onehot_warp w{w}", one_hot(o4, exp_onehot_warp.onehot_warp, w),
+        4: [(f"onehot_warp w{w}", *one_hot(o4, exp_onehot_warp.onehot_warp,
+                                           w),
              one_hot_bound(o4, 8, 128, w)) for w in (64, 128)],
-        5: [(f"ablate {k}", one_hot(o5, exp_warp_ablate.make_call(k)),
+        5: [(f"ablate {k}", *one_hot(o5, exp_warp_ablate.make_call(k)),
              ablate_bound(k)) for k in ("twload", "null", "intops", "select")],
-        6: [("warp_pallas", lambda: exp_warp_kernel.warp_pallas(
-            r6["table"], r6["iu"], r6["iv"]),
+        6: [("warp_pallas", lambda iu, iv: exp_warp_kernel.warp_pallas(
+            r6["table"], iu, iv), (r6["iu"], r6["iv"]),
             (12 * n_px + 4 * numbered_texels(
                 exp_warp_kernel.warp_pallas_reference, r6["table"], r6["iu"],
                 r6["iv"]), 10 * n_px))],
         7: [(f"warp ({ty},{tx}) w{w}",
-             one_hot(o7, exp_warp_tune.warp, ty, tx, w),
+             *one_hot(o7, exp_warp_tune.warp, ty, tx, w),
              one_hot_bound(o7, ty, tx, w))
             for ty, tx, w in ((8, 128, 64), (16, 128, 64), (32, 128, 128))],
         8: [(f"warp_slim ({ty},{tx}) w{w}",
-             one_hot(o7, exp_warp_tune2.warp_slim, ty, tx, w),
+             *one_hot(o7, exp_warp_tune2.warp_slim, ty, tx, w),
              one_hot_bound(o7, ty, tx, w))
             for ty, tx, w in ((16, 128, 64), (32, 128, 128))],
-        9: [("warp_two_pass", lambda: exp_warp2pass.warp_two_pass(
-            r9["table"], r9["iustar"], r9["iv"]),
+        9: [("warp_two_pass", lambda ius, iv: exp_warp2pass.warp_two_pass(
+            r9["table"], ius, iv), (r9["iustar"], r9["iv"]),
             (4 * r9["iustar"].numel() + 8 * n_px + 4 * numbered_texels(
                 exp_warp2pass.warp_two_pass_reference, r9["table"],
                 r9["iustar"], r9["iv"]), 20 * n_px))],
     }
+    # the kernel whose persistent form each row compares with its own
+    persistent_of = {4: "onehot_window", 6: "row_window", 7: "onehot_window",
+                     8: "onehot_window", 9: "row_window"}
     plains = {
         4: (lambda: exp_onehot_warp.onehot_warp_reference(
             o4["t_hl"], o4["lin"], 64), results[4]["inputs"]["tables"][0],
@@ -396,26 +450,51 @@ def experiments(smi: str) -> list:
         9: (lambda: exp_warp2pass.warp_two_pass_reference(
             r9["table"], r9["iustar"], r9["iv"]), r9["table"], r9["lin"]),
     }
+    def device_ms(fn, names):
+        """(device ms per call of the kernels ``names``, by kernel) under
+        the profiler over 50 calls of ``fn``."""
+        _, per = profiled(fn, 50)
+        per = {n: sum(v for k, v in per.items() if n in k) for n in names}
+        return sum(per.values()), per
+
     rows = []
     for row, vs in variants.items():
         timed = []
-        for label, kern, (nbytes, ops) in vs:
+        names = EXP_ROWS[row][1]
+        for label, call, fields, (nbytes, ops) in vs:
+            def kern():
+                return call(*fields)
+
             k_ms = cuda_ms(kern, 200)
-            _, kper = profiled(kern, 50)
-            per = {n: sum(v for k, v in kper.items() if n in k)
-                   for n in EXP_ROWS[row][1]}
-            dev_ms = sum(per.values())
+            dev_ms, per = device_ms(kern, names)
+            copies = [tuple(f.clone() for f in fields) for _ in range(N_COLD)]
+            cold_ms, cold_per = device_ms(rotating(call, copies), names)
             b_ms, b_by = bound(nbytes, ops)
-            timed.append(dict(variant=label, ms=dev_ms or k_ms,
-                              ms_source=MS_SOURCE[bool(dev_ms)],
-                              wrapper_ms=k_ms, kernel_device_ms=per,
-                              bound_ms=b_ms, bound_by=b_by,
-                              bound_bytes=nbytes))
+            entry = dict(variant=label, ms=dev_ms or k_ms,
+                         ms_source=MS_SOURCE[bool(dev_ms)],
+                         wrapper_ms=k_ms, kernel_device_ms=per,
+                         ms_cold=cold_ms or None,
+                         kernel_device_ms_cold=cold_per, bound_ms=b_ms,
+                         bound_by=b_by, bound_bytes=nbytes)
+            if row in persistent_of:
+                exp_warp.PERSISTENT[persistent_of[row]] = True
+                entry["persistent"] = dict(
+                    zip(("ms", "kernel_device_ms"), device_ms(kern, names)))
+                entry["persistent"].update(zip(
+                    ("ms_cold", "kernel_device_ms_cold"),
+                    device_ms(rotating(call, copies), names)))
+                exp_warp.PERSISTENT[persistent_of[row]] = False
+            del copies
+            timed.append(entry)
             log("experiments", f"[{smi}] row {row} {label}: kernel "
-                + (f"{dev_ms:.4f} ms under the profiler ("
-                   + ", ".join(f"{n} {v:.4f}" for n, v in per.items()) + ")"
-                   if dev_ms else f"not measured: profiler kernels "
-                   f"{list(kper)[:3]}")
+                + (f"{dev_ms:.4f} ms warm, {cold_ms:.4f} ms cold under the "
+                   f"profiler (" + ", ".join(
+                       f"{n} {v:.4f}/{cold_per[n]:.4f}"
+                       for n, v in per.items()) + ")"
+                   if dev_ms else "not measured: the profiler saw no kernel")
+                + (f", persistent {entry['persistent']['ms']:.4f} warm, "
+                   f"{entry['persistent']['ms_cold']:.4f} cold"
+                   if "persistent" in entry else "")
                 + f", wrapper {k_ms:.4f} ms (CUDA events), bound "
                 f"{b_ms * 1e3:.2f} us ({b_by}; {nbytes} bytes)")
         plain, table, lin = plains[row]
@@ -423,16 +502,23 @@ def experiments(smi: str) -> list:
         flat = torch.where(lin < 0, 0, lin).reshape(-1).long()
         l_ms = cuda_ms(lambda: torch.take(table, flat), 200)
         _, lper = profiled(lambda: torch.take(table, flat), 50)
+        flats = [(flat.clone(),) for _ in range(N_COLD)]
+        _, lper_cold = profiled(
+            rotating(lambda f: torch.take(table, f), flats), 50)
+        del flats
+        lib_ms = sum(lper.values()) or None
+        lib_cold = sum(lper_cold.values()) or None
+        mismatch = max(results[row]["mismatch"].values())
         head = timed[0]
-        names = row_names[row]
         rows.append({
-            "name": "/".join(names),
+            "name": "/".join(row_names[row]),
             "row": row,
             "route": "cuda",
             "source": "ray_tracing_octrees_tpu_torch/trace/csrc/exp_warp.cu",
             "replaces": EXP_ROWS[row][0],
             "launches": sum(launches[row].values()),
             "launches_by_wrapper": launches[row],
+            "launches_by_form": forms[row],
             "max_abs_err": max_err[row],
             "match_bar": "bitwise equal (share 1.0)",
             "match_share": min(shares[row].values()),
@@ -441,21 +527,30 @@ def experiments(smi: str) -> list:
             "headline": head["variant"],
             "ms": head["ms"],
             "ms_source": head["ms_source"],
+            "ms_cold": head["ms_cold"],
             "wrapper_ms": head["wrapper_ms"],
             "kernel_device_ms": head["kernel_device_ms"],
             "plain_ms": p_ms,
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
+            "bound_share_cold": (head["bound_ms"] / head["ms_cold"]
+                                 if head["ms_cold"] else None),
             "library_ms": l_ms,
-            "library_device_ms": sum(lper.values()) or None,
+            "library_device_ms": lib_ms,
+            "library_device_ms_cold": lib_cold,
+            "take_factor": head["ms"] / lib_ms if lib_ms else None,
+            "take_factor_cold": (head["ms_cold"] / lib_cold
+                                 if lib_cold and head["ms_cold"] else None),
             "library_call": EXP_LIBRARY,
+            "library_same_function": mismatch == 0,
+            "window_mismatch": mismatch,
             "variants": timed,
             "driver_ms": results[row]["ms"],
         })
         log("experiments", f"[{smi}] row {row} {head['variant']}: plain "
-            f"{p_ms:.4f} ms, torch.take {l_ms:.4f} ms "
-            f"({sum(lper.values()):.4f} ms under the profiler); launches "
-            f"{rows[-1]['launches']}")
+            f"{p_ms:.4f} ms, torch.take {l_ms:.4f} ms ({lib_ms or 0:.4f} ms "
+            f"warm, {lib_cold or 0:.4f} ms cold under the profiler; window "
+            f"mismatch {mismatch:.4f}); launches {rows[-1]['launches']}")
     return rows
 
 
@@ -501,9 +596,13 @@ def main() -> int:
     log("build", f"{kernels} in {time.perf_counter() - t:.2f} s wall; "
         + ", ".join(f"{k} {s:.2f} s" for k, s in _build.BUILD_SECONDS.items()))
     for name, text in _build.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"{name} ptxas: {line.strip()}")
+        report = ptxas_report(text)
+        for fn, (regs, spill) in report.items():
+            log("build", f"{name} ptxas: {fn}: {regs} registers, {spill} "
+                f"bytes spilled")
+        spilled = [fn for fn, (_, spill) in report.items() if spill]
+        if name == "exp_warp" and spilled:
+            raise RuntimeError(f"exp_warp.cu kernels spill: {spilled}")
 
     # 3. scene
     t = time.perf_counter()

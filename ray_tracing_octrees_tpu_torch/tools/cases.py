@@ -3,12 +3,12 @@ the seeded edge fields on which each window rule shows.
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold each CUDA kernel
 bitwise against its plain version over :func:`kernel_cases` of the
-drivers' inputs and of :func:`edge_inputs`.
+drivers' inputs and of each set of :func:`edge_inputs`.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -40,12 +40,13 @@ Case = Tuple[int, str, object, object, tuple]
 
 
 def kernel_cases(t_hl=None, lin=None, table=None, iu=None, iv=None,
-                 t9=None, iustar=None, iv9=None) -> List[Case]:
+                 t9=None, iustar=None, iv9=None, tiles=()) -> List[Case]:
     """(row, label, wrapper, plain version, args) for every wrapper whose
     inputs are given: the one-hot forms on ``t_hl`` / ``lin`` (every
-    ``win`` and every tile that divides ``lin``), ``warp_pallas`` on
-    ``table`` / ``iu`` / ``iv``, and both passes of the two-pass warp on
-    ``t9`` / ``iustar`` / ``iv9``."""
+    ``win`` and every tile of the experiments' lists that divides ``lin``,
+    and ``warp`` at each further ``(ty, tx, win)`` of ``tiles``),
+    ``warp_pallas`` on ``table`` / ``iu`` / ``iv``, and both passes of the
+    two-pass warp on ``t9`` / ``iustar`` / ``iv9``."""
     cases: List[Case] = []
     if lin is not None:
         h, w = lin.shape
@@ -71,6 +72,9 @@ def kernel_cases(t_hl=None, lin=None, table=None, iu=None, iv=None,
                          else wt2.warp_persel_reference)
                 cases.append((8, f"warp_{name} ({ty},{tx}) w{win}", fn,
                               plain, (t_hl, lin, ty, tx, win)))
+        for ty, tx, win in tiles:
+            cases.append((7, f"warp ({ty},{tx}) w{win} sel0", wt.warp,
+                          wt.warp_reference, (t_hl, lin, ty, tx, win, False)))
     if iu is not None:
         cases.append((6, "warp_pallas", wk.warp_pallas,
                       wk.warp_pallas_reference, (table, iu, iv)))
@@ -83,28 +87,24 @@ def kernel_cases(t_hl=None, lin=None, table=None, iu=None, iv=None,
     return cases
 
 
-def edge_inputs(device, seed: int = 0) -> dict:
-    """Seeded fields on which every rule shows, as :func:`kernel_cases`
-    keywords, on ``device``:
+# a tile of kernel 1 with no instantiation of its own
+GENERAL_TILE = (8, 64, 64)
 
-    - a signed f32 table with -0.0 and +0.0 texels (its hi/lo split is
-      not exact);
-    - a 64 x 512 ``lin`` whose ``iu`` spans 90 rows per 8-row tile, with
-      a tile past the table's last row, a tile at the top, invalid pixels
-      of several negative values and an all-invalid 32 x 256 corner
-      (whole tiles of every configuration);
-    - 64 x 512 ``iu`` / ``iv`` for ``warp_pallas``: ``iu`` spanning 90
-      rows per tile, a tile at the table's end, and a tile holding -1
-      rows, which pull its window to row 0;
-    - a 256 x 512 table, 40 x 512 ``iustar`` and ``iv`` for the two-pass
-      warp: H % 128 != 0, so the padded zeros set ``vmin`` to 0.
-    """
-    rng = np.random.default_rng(seed)
-    t = rng.uniform(-512, 512, (TH, TW)).astype(np.float32)
-    z = rng.random((TH, TW))
-    t[z < 0.1] = -0.0
-    t[(z >= 0.1) & (z < 0.15)] = 0.0
-    h, w = 64, 512
+
+def _offset_view(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` at a storage offset of one element, so
+    its data is not 16-byte aligned."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _one_hot_lin(rng, h: int, w: int) -> np.ndarray:
+    """int32 [h, w] ``(iu << 10) | iv`` on which kernel 1's rule shows:
+    ``iu`` spanning 90 rows per 8-row tile, a tile at the top, a tile past
+    the table's last row, and 5 % invalid pixels of several negative
+    values."""
     yy = np.arange(h)[:, None]
     xx = np.arange(w)[None, :]
     iu = 300 + (yy * 3 + xx // 3) % 90 + rng.integers(0, 3, (h, w))
@@ -116,12 +116,58 @@ def edge_inputs(device, seed: int = 0) -> dict:
     lin[bad] = rng.choice(np.array([-1, -5, -(1 << 20),
                                     np.iinfo(np.int32).min], np.int32),
                           bad.sum())
+    return lin
+
+
+def _row_fields(rng, h: int, w: int, th: int, tc: int):
+    """int32 ``iu``, ``iv`` [h, w] for kernel 3: ``iu`` spanning 90 rows
+    per tile, a tile at the table's end, a tile to the left of it at rows
+    20-89, and -1 rows in one tile only (which pull its window to row 0);
+    ``iv`` in [0, tc)."""
+    yy = np.arange(h)[:, None]
+    xx = np.arange(w)[None, :]
+    iu = (40 + (yy * 5 + xx // 2) % 90 + rng.integers(0, 3, (h, w)))
+    iu[:8, 128:256] = th - 30 + xx[:, 128:256] % 50
+    iu[8:16, :128] = 20 + xx[:, :128] % 70
+    iu[16:24:3, 256:384:17] = -1     # -1 rows in one tile only
+    iv = (xx * 3 + yy * 11 + rng.integers(0, 5, (h, w))) % tc
+    return iu.astype(np.int32), iv.astype(np.int32)
+
+
+def edge_inputs(device, seed: int = 0) -> Dict[str, dict]:
+    """Seeded fields on which every rule and every form of the kernels
+    shows, as sets of :func:`kernel_cases` keywords on ``device``, by
+    label. Every set shares a signed f32 table with -0.0 and +0.0 texels
+    (its hi/lo split is not exact) and adds ``warp`` at the tile
+    :data:`GENERAL_TILE`, which has no instantiation of its own:
+
+    - "edge fields": a 64 x 512 ``lin`` whose ``iu`` spans 90 rows per
+      8-row tile, with a tile past the table's last row, a tile at the
+      top, invalid pixels of several negative values and an all-invalid
+      32 x 256 corner (whole tiles of every configuration); 64 x 512
+      ``iu`` / ``iv`` for ``warp_pallas``: ``iu`` spanning 90 rows per
+      tile, a tile at the table's end, and a tile holding -1 rows, which
+      pull its window to row 0; a 256 x 512 table, 40 x 512 ``iustar``
+      and ``iv`` for the two-pass warp: H % 128 != 0, so the padded zeros
+      set ``vmin`` to 0;
+    - "offset views": the same index fields as contiguous views at a
+      storage offset of one element, which take the general forms;
+    - "72x640": 72 x 640 fields, 45 tiles of 8 x 128 (a count that is
+      not a multiple of a grid of resident blocks), for kernels 1 and 3
+      and both passes (``iustar`` on a 256 x 640 table);
+    - "invalid 32x128 tiles": a 64 x 512 ``lin`` in which whole 32 x 128
+      tiles are invalid beside valid ones: one of -1, one of int32's
+      least value, one of several negative values.
+    """
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(-512, 512, (TH, TW)).astype(np.float32)
+    z = rng.random((TH, TW))
+    t[z < 0.1] = -0.0
+    t[(z >= 0.1) & (z < 0.15)] = 0.0
+    h, w = 64, 512
+    lin = _one_hot_lin(rng, h, w)
     lin[32:, 256:] = -1
-    iu6 = (40 + (yy * 5 + xx // 2) % 90 + rng.integers(0, 3, (h, w)))
-    iu6[:8, 128:256] = TH - 30 + xx[:, 128:256] % 50
-    iu6[8:16, :128] = 20 + xx[:, :128] % 70
-    iu6[16:24:3, 256:384:17] = -1     # -1 rows in one tile only
-    iv6 = (xx * 3 + yy * 11 + rng.integers(0, 5, (h, w))) % TW
+    iu6, iv6 = _row_fields(rng, h, w, TH, TW)
     h9, u9, v9 = 40, 256, 512
     y9 = np.arange(h9)[:, None]
     x9 = np.arange(v9)[None, :]
@@ -134,10 +180,33 @@ def edge_inputs(device, seed: int = 0) -> dict:
         return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
 
     table = dev(t)
-    return dict(t_hl=ow.split_hi_lo(table), lin=dev(lin), table=table,
+    t_hl = ow.split_hi_lo(table)
+    tiles = (GENERAL_TILE,)
+    base = dict(t_hl=t_hl, lin=dev(lin), table=table,
                 iu=dev(iu6, np.int32), iv=dev(iv6, np.int32),
                 t9=table[:u9, :v9].contiguous(), iustar=dev(ius, np.int32),
-                iv9=dev(iv9, np.int32))
+                iv9=dev(iv9, np.int32), tiles=tiles)
+    offset = dict(base)
+    for k in ("lin", "iu", "iv", "iustar", "iv9"):
+        offset[k] = _offset_view(base[k])
+    h7, w7 = 72, 640
+    iu7, iv7 = _row_fields(rng, h7, w7, TH, TW)
+    ius7, _ = _row_fields(rng, h7, w7, u9, w7)
+    ius7 = np.clip(ius7, -3, u9 + 5)
+    iv97 = (np.arange(w7)[None, :] * 2 + np.arange(h7)[:, None] * 3
+            + rng.integers(0, 3, (h7, w7))) % w7
+    small = dict(t_hl=t_hl, lin=dev(_one_hot_lin(rng, h7, w7)), table=table,
+                 iu=dev(iu7), iv=dev(iv7), t9=table[:u9, :w7].contiguous(),
+                 iustar=dev(ius7, np.int32), iv9=dev(iv97, np.int32),
+                 tiles=tiles)
+    lin32 = _one_hot_lin(rng, h, w)
+    lin32[:32, 128:256] = -1
+    lin32[32:, :128] = np.iinfo(np.int32).min
+    lin32[32:, 384:] = rng.choice(np.array([-1, -1024, -(1 << 30)],
+                                           np.int32), (32, 128))
+    return {"edge fields": base, "offset views": offset, "72x640": small,
+            "invalid 32x128 tiles": dict(t_hl=t_hl, lin=dev(lin32),
+                                         tiles=tiles)}
 
 
 def bits_equal_share(a: torch.Tensor, b: torch.Tensor) -> float:

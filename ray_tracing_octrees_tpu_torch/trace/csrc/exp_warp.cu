@@ -42,11 +42,37 @@
 // Bound on an H100 SXM: the bytes (a few integer operations per pixel).
 // Per pixel each kernel reads its index fields once and writes 4 bytes;
 // the table is read at most once (4.2 MB at 1024 x 1024, in bf16 hi/lo or
-// f32, L2-resident in the 50 MB L2). At 1920 x 1088: 6.24 us for 1,
-// 2.49 us (null) to 4.99 us for 2, 8.73 us for 3 and 6.32 us for 4. This
-// first version is simple and right: coalesced index reads and output
-// writes along x, the tile's index field read twice (the min, then the
-// values; the second read hits L1/L2), one texel load per pixel.
+// f32, L2-resident in the 50 MB L2). At 1920 x 1088 kernel 1 moves 8 bytes
+// a pixel plus its distinct texels (about 5.0 us at 3.35 TB/s), kernel 3
+// 12 bytes a pixel plus its texels (about 7.5 us); a frame's index field
+// is new on every frame, so it comes from device memory, not from L2.
+//
+// Kernels 1 and 3, the gathers, are built for Hopper:
+//   - a compile-time tile: one instantiation per tile the drivers use
+//     (kernel 1: 8x128, 16x128, 32x128, 16x256; kernel 3: 8x128), so a
+//     pixel's row and column are shifts and masks, on 32-bit offsets (the
+//     wrappers check that the image and the table hold fewer than 2^31
+//     elements);
+//   - one read of each index field: a thread loads its TY*TX/256 pixels'
+//     indices into registers with 16-byte loads, takes their min there,
+//     then __reduce_min_sync within the warp, one shared slot per warp and
+//     one barrier; it decodes and gathers from its registers;
+//   - all texel loads of a thread in flight before the first add (its loop
+//     over its pixels is unrolled; a pixel that needs no texel loads the
+//     table's first one), and the outputs written as 16-byte stores;
+//   - any other tile, and index fields or outputs that are not 16-byte
+//     aligned (a contiguous view at a storage offset), take the general
+//     instantiation: the tile at run time, 4-byte loads and stores, at most
+//     kMaxPx pixels a thread (a tile of at most 4096), each index field
+//     still read once.
+//   - PERSISTENT-NOTE
+// Not taken: fetching hi and lo as one 4-byte word. The experiments' input
+// is the planar t_hl [2 TH, TW]: a repack on every call moves 4 MB more
+// than it saves, and a packed copy cached against the tensor goes stale
+// when the tensor is edited in place.
+// Kernels 2 and 4 keep the first port's form: one block per tile, the
+// tile's index field read twice (the min, then the values; the second read
+// hits L1/L2), one texel load per pixel.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -55,6 +81,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxPx = 16;   // pixels a thread holds in a general instantiation
 
 __device__ __forceinline__ float bf16_to_f32(uint16_t bits) {
   return __uint_as_float(static_cast<uint32_t>(bits) << 16);
@@ -78,32 +106,230 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-// 1. One-hot window lookup on the hi/lo split. Grid (W / tx, H / ty).
+// Block-wide min with one barrier: the warp's min by __reduce_min_sync, one
+// slot per warp in `slots` (16-byte aligned), then every thread reads the
+// eight slots as two 16-byte words. A caller that takes another min before
+// its next barrier passes other slots.
+static_assert(kWarps == 8, "block_min_once reads eight slots");
+__device__ __forceinline__ int block_min_once(int v, int* slots) {
+  v = __reduce_min_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) slots[threadIdx.x >> 5] = v;
+  __syncthreads();
+  const int4 a = reinterpret_cast<const int4*>(slots)[0];
+  const int4 b = reinterpret_cast<const int4*>(slots)[1];
+  return min(min(min(a.x, a.y), min(a.z, a.w)),
+             min(min(b.x, b.y), min(b.z, b.w)));
+}
+
+// The pixels one thread holds of a tile whose top-left pixel is (y0, x0).
+// With a compile-time tile (TY > 0): kN / 4 runs of four neighbours in a
+// row, run g at tile position 4 (threadIdx.x + g * kThreads), so a warp
+// reads 512 contiguous bytes of one tile row. Otherwise (TY == 0, the tile
+// ty x tx at run time): up to kMaxPx single pixels, pixel i at tile
+// position threadIdx.x + i * kThreads, where the tile has one.
+template <int TY, int TX>
+struct Tile {
+  static constexpr bool kVector = TY > 0;
+  static constexpr int kN = kVector ? TY * TX / kThreads : kMaxPx;
+  static constexpr int kRow = kVector ? TX / 4 : 1;   // runs per tile row
+  static_assert(!kVector || (TY * TX) % (4 * kThreads) == 0, "whole runs");
+  static_assert((kRow & (kRow - 1)) == 0, "TX / 4 a power of two");
+
+  int off[kN];   // the pixel's offset in the image, -1 where it has none
+  int x[kN];     // its column in the image
+
+  __device__ __forceinline__ Tile(int y0, int x0, int width, int ty, int tx) {
+    if constexpr (kVector) {
+#pragma unroll
+      for (int g = 0; g < kN / 4; ++g) {
+        const int q = threadIdx.x + g * kThreads;
+        const int c = x0 + 4 * (q % kRow);
+        const int o = (y0 + q / kRow) * width + c;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          off[4 * g + j] = o + j;
+          x[4 * g + j] = c + j;
+        }
+      }
+    } else {
+      const int npx = ty * tx;
+#pragma unroll
+      for (int i = 0; i < kN; ++i) {
+        const int p = threadIdx.x + i * kThreads;
+        x[i] = x0 + p % tx;
+        off[i] = p < npx ? (y0 + p / tx) * width + x[i] : -1;
+      }
+    }
+  }
+
+  __device__ __forceinline__ bool has(int i) const {
+    return kVector || off[i] >= 0;
+  }
+
+  // v[i] = src[off[i]], `fill` where the thread holds no pixel i.
+  __device__ __forceinline__ void load(const int32_t* __restrict__ src,
+                                       int (&v)[kN], int fill) const {
+    if constexpr (kVector) {
+#pragma unroll
+      for (int g = 0; g < kN / 4; ++g) {
+        const int4 t = __ldg(reinterpret_cast<const int4*>(src + off[4 * g]));
+        v[4 * g] = t.x;
+        v[4 * g + 1] = t.y;
+        v[4 * g + 2] = t.z;
+        v[4 * g + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kN; ++i) v[i] = has(i) ? __ldg(src + off[i]) : fill;
+    }
+  }
+
+  __device__ __forceinline__ void store(float* __restrict__ dst,
+                                        const float (&v)[kN]) const {
+    if constexpr (kVector) {
+#pragma unroll
+      for (int g = 0; g < kN / 4; ++g)
+        *reinterpret_cast<float4*>(dst + off[4 * g]) =
+            make_float4(v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+        if (has(i)) dst[off[i]] = v[i];
+    }
+  }
+
+  // Vector form: start copying the runs of src into `ring` at their tile
+  // positions (cp.async, 16 bytes each; the caller commits the group).
+  __device__ __forceinline__ void stage(const int32_t* __restrict__ src,
+                                        int* ring) const {
+#pragma unroll
+    for (int g = 0; g < kN / 4; ++g) {
+      const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(
+          ring + 4 * (threadIdx.x + g * kThreads)));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   :: "r"(dst), "l"(src + off[4 * g]) : "memory");
+    }
+  }
+
+  // Vector form: the runs that stage() copied into `ring`.
+  __device__ __forceinline__ void load_staged(const int* ring,
+                                              int (&v)[kN]) const {
+#pragma unroll
+    for (int g = 0; g < kN / 4; ++g) {
+      const int4 t = reinterpret_cast<const int4*>(ring)[threadIdx.x +
+                                                         g * kThreads];
+      v[4 * g] = t.x;
+      v[4 * g + 1] = t.y;
+      v[4 * g + 2] = t.z;
+      v[4 * g + 3] = t.w;
+    }
+  }
+};
+
+template <int TY, int TX>
+__device__ __forceinline__ Tile<TY, TX> tile_at(int tile, int tiles_x,
+                                                int width) {
+  const int ty = tile / tiles_x;
+  return Tile<TY, TX>(ty * TY, (tile - ty * tiles_x) * TX, width, TY, TX);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's copies of all but the newest group have landed.
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Kernel 1's min over the pixels a thread holds: iu = lin < 0 ? th-1 :
+// lin >> 10.
+template <int TY, int TX>
+__device__ __forceinline__ int onehot_min(const Tile<TY, TX>& t,
+                                          const int (&l)[Tile<TY, TX>::kN],
+                                          int th) {
+  int m = INT_MAX;
+#pragma unroll
+  for (int i = 0; i < Tile<TY, TX>::kN; ++i)
+    if (t.has(i)) m = min(m, l[i] < 0 ? th - 1 : (l[i] >> 10));
+  return m;
+}
+
+// Kernel 1's gather and store of the pixels a thread holds: every hi and lo
+// texel load issued before the first add. An invalid pixel loads texel 0.
+template <int TY, int TX>
+__device__ __forceinline__ void onehot_gather(
+    const Tile<TY, TX>& t, const int (&l)[Tile<TY, TX>::kN], int umin,
+    const uint16_t* __restrict__ t_hl, int lo_plane, int tw, int win,
+    float* __restrict__ out) {
+  constexpr int kN = Tile<TY, TX>::kN;
+  uint16_t hi[kN], lo[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int o = l[i] < 0 ? 0
+        : (umin + clampi((l[i] >> 10) - umin, 0, win - 1)) * tw
+          + (l[i] & 1023);
+    hi[i] = __ldg(t_hl + o);
+    lo[i] = __ldg(t_hl + lo_plane + o);
+  }
+  float v[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+    v[i] = l[i] < 0 ? -1.0f
+                    : __fadd_rn(bf16_to_f32(hi[i]), bf16_to_f32(lo[i]));
+  t.store(out, v);
+}
+
+// 1. One-hot window lookup on the hi/lo split, one tile per block. Grid
+// (W / tx, H / ty); TY = TX = 0 is the general instantiation.
+template <int TY, int TX>
 __global__ void __launch_bounds__(kThreads) onehot_window_kernel(
     const uint16_t* __restrict__ t_hl, int th, int tw,
     const int32_t* __restrict__ lin, float* __restrict__ out, int width,
     int ty, int tx, int win) {
-  const int tile_px = ty * tx;
-  const int64_t y0 = (int64_t)blockIdx.y * ty;
-  const int x0 = blockIdx.x * tx;
-  int m = INT_MAX;
-  for (int p = threadIdx.x; p < tile_px; p += kThreads) {
-    const int32_t l = __ldg(lin + (y0 + p / tx) * width + x0 + p % tx);
-    m = min(m, l < 0 ? th - 1 : (l >> 10));
-  }
-  const int umin = (clampi(block_min(m), 0, th - win) >> 3) << 3;
-  const int64_t lo_plane = (int64_t)th * tw;
-  for (int p = threadIdx.x; p < tile_px; p += kThreads) {
-    const int64_t i = (y0 + p / tx) * width + x0 + p % tx;
-    const int32_t l = __ldg(lin + i);
-    if (l < 0) {
-      out[i] = -1.0f;
-      continue;
-    }
-    const int u = umin + clampi((l >> 10) - umin, 0, win - 1);
-    const int64_t off = (int64_t)u * tw + (l & 1023);
-    out[i] = __fadd_rn(bf16_to_f32(__ldg(t_hl + off)),
-                       bf16_to_f32(__ldg(t_hl + lo_plane + off)));
+  using T = Tile<TY, TX>;
+  __shared__ __align__(16) int slots[kWarps];
+  const T t(blockIdx.y * (TY > 0 ? TY : ty), blockIdx.x * (TX > 0 ? TX : tx),
+            width, ty, tx);
+  int l[T::kN];
+  t.load(lin, l, -1);
+  const int umin =
+      (clampi(block_min_once(onehot_min(t, l, th), slots), 0, th - win) >> 3)
+      << 3;
+  onehot_gather(t, l, umin, t_hl, th * tw, tw, win, out);
+}
+
+// 1, persistent: about as many blocks as fit on the card, each walking the
+// tiles tile = blockIdx.x, + gridDim.x, ... It stages the next tile's lin
+// into a two-slot shared ring with cp.async while it gathers the current
+// one; each thread reads back only the runs it copied, so its own
+// cp.async.wait_group orders them, and the one barrier per tile (in the
+// min, whose slots alternate) orders the ring's reuse.
+template <int TY, int TX>
+__global__ void __launch_bounds__(kThreads) onehot_window_kernel_persistent(
+    const uint16_t* __restrict__ t_hl, int th, int tw,
+    const int32_t* __restrict__ lin, float* __restrict__ out, int width,
+    int tiles_x, int n_tiles, int win) {
+  using T = Tile<TY, TX>;
+  static_assert(T::kVector, "the persistent form needs a compile-time tile");
+  __shared__ __align__(16) int ring[2][TY * TX];
+  __shared__ __align__(16) int slots[2][kWarps];
+  int tile = blockIdx.x;
+  tile_at<TY, TX>(tile, tiles_x, width).stage(lin, ring[0]);
+  cp_async_commit();
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (next < n_tiles)
+      tile_at<TY, TX>(next, tiles_x, width).stage(lin, ring[(it + 1) & 1]);
+    cp_async_commit();
+    cp_async_wait_prev();
+    const T t = tile_at<TY, TX>(tile, tiles_x, width);
+    int l[T::kN];
+    t.load_staged(ring[it & 1], l);
+    const int umin = (clampi(block_min_once(onehot_min(t, l, th),
+                                            slots[it & 1]),
+                             0, th - win) >> 3) << 3;
+    onehot_gather(t, l, umin, t_hl, th * tw, tw, win, out);
   }
 }
 
@@ -149,29 +375,111 @@ __global__ void __launch_bounds__(kThreads) ablate_kernel(
   }
 }
 
-// 3. f32 row-window select on 8 x 128 tiles. col_idx null: the column is
-// the pixel's own x (the two-pass warp's first pass). Grid (W / 128, H / 8).
+// Kernel 3's gather and store of the pixels a thread holds (rows u,
+// columns c): every texel load issued before the first add. A pixel outside
+// the window loads texel 0.
+template <int TY, int TX>
+__device__ __forceinline__ void row_gather(
+    const Tile<TY, TX>& t, const int (&u)[Tile<TY, TX>::kN],
+    const int (&c)[Tile<TY, TX>::kN], int umin,
+    const float* __restrict__ table, int tc, int win,
+    float* __restrict__ out) {
+  constexpr int kN = Tile<TY, TX>::kN;
+  float tex[kN];
+  bool inwin[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int rel = u[i] - umin;   // exact: umin <= u or umin == 0
+    inwin[i] = rel >= 0 && rel < win;
+    tex[i] = __ldg(table + (inwin[i] ? u[i] * tc + c[i] : 0));
+  }
+  float v[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+    v[i] = inwin[i] ? __fadd_rn(0.0f, tex[i]) : 0.0f;
+  t.store(out, v);
+}
+
+// The columns of kernel 3: col_idx's, or the pixels' own when it is null.
+template <int TY, int TX>
+__device__ __forceinline__ void row_columns(const Tile<TY, TX>& t,
+                                            const int32_t* __restrict__ col_idx,
+                                            int (&c)[Tile<TY, TX>::kN]) {
+  if (col_idx) {
+    t.load(col_idx, c, 0);
+  } else {
+#pragma unroll
+    for (int i = 0; i < Tile<TY, TX>::kN; ++i) c[i] = t.x[i];
+  }
+}
+
+template <int TY, int TX>
+__device__ __forceinline__ int row_min(const Tile<TY, TX>& t,
+                                       const int (&u)[Tile<TY, TX>::kN]) {
+  int m = INT_MAX;
+#pragma unroll
+  for (int i = 0; i < Tile<TY, TX>::kN; ++i)
+    if (t.has(i)) m = min(m, u[i]);
+  return m;
+}
+
+// 3. f32 row-window select on 8 x 128 tiles, one tile per block. col_idx
+// null: the column is the pixel's own x (the two-pass warp's first pass).
+// Grid (W / 128, H / 8); TY = TX = 0 is the general instantiation.
+template <int TY, int TX>
 __global__ void __launch_bounds__(kThreads) row_window_kernel(
     const float* __restrict__ table, int th, int tc,
     const int32_t* __restrict__ row_idx, const int32_t* __restrict__ col_idx,
     float* __restrict__ out, int width, int win) {
-  constexpr int kTy = 8, kTx = 128;
-  const int64_t y0 = (int64_t)blockIdx.y * kTy;
-  const int x0 = blockIdx.x * kTx;
-  int m = INT_MAX;
-  for (int p = threadIdx.x; p < kTy * kTx; p += kThreads)
-    m = min(m, __ldg(row_idx + (y0 + p / kTx) * width + x0 + p % kTx));
-  const int umin = clampi(block_min(m), 0, th - win);
-  for (int p = threadIdx.x; p < kTy * kTx; p += kThreads) {
-    const int64_t i = (y0 + p / kTx) * width + x0 + p % kTx;
-    const int32_t u = __ldg(row_idx + i);
-    const int64_t rel = (int64_t)u - umin;
-    float v = 0.0f;
-    if (rel >= 0 && rel < win) {
-      const int col = col_idx ? __ldg(col_idx + i) : x0 + p % kTx;
-      v = __fadd_rn(0.0f, __ldg(table + (int64_t)u * tc + col));
+  using T = Tile<TY, TX>;
+  __shared__ __align__(16) int slots[kWarps];
+  const T t(blockIdx.y * 8, blockIdx.x * 128, width, 8, 128);
+  int u[T::kN], c[T::kN];
+  t.load(row_idx, u, INT_MAX);
+  row_columns(t, col_idx, c);
+  const int umin = clampi(block_min_once(row_min(t, u), slots), 0, th - win);
+  row_gather(t, u, c, umin, table, tc, win, out);
+}
+
+// 3, persistent: as onehot_window_kernel_persistent, staging row_idx and
+// col_idx (when given) of the next tile.
+template <int TY, int TX>
+__global__ void __launch_bounds__(kThreads) row_window_kernel_persistent(
+    const float* __restrict__ table, int th, int tc,
+    const int32_t* __restrict__ row_idx, const int32_t* __restrict__ col_idx,
+    float* __restrict__ out, int width, int tiles_x, int n_tiles, int win) {
+  using T = Tile<TY, TX>;
+  static_assert(T::kVector, "the persistent form needs a compile-time tile");
+  __shared__ __align__(16) int ring[2][2][TY * TX];   // [slot][row, col]
+  __shared__ __align__(16) int slots[2][kWarps];
+  int tile = blockIdx.x;
+  {
+    const T t0 = tile_at<TY, TX>(tile, tiles_x, width);
+    t0.stage(row_idx, ring[0][0]);
+    if (col_idx) t0.stage(col_idx, ring[0][1]);
+  }
+  cp_async_commit();
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (next < n_tiles) {
+      const T tn = tile_at<TY, TX>(next, tiles_x, width);
+      tn.stage(row_idx, ring[(it + 1) & 1][0]);
+      if (col_idx) tn.stage(col_idx, ring[(it + 1) & 1][1]);
     }
-    out[i] = v;
+    cp_async_commit();
+    cp_async_wait_prev();
+    const T t = tile_at<TY, TX>(tile, tiles_x, width);
+    int u[T::kN], c[T::kN];
+    t.load_staged(ring[it & 1][0], u);
+    if (col_idx) {
+      t.load_staged(ring[it & 1][1], c);
+    } else {
+#pragma unroll
+      for (int i = 0; i < T::kN; ++i) c[i] = t.x[i];
+    }
+    const int umin =
+        clampi(block_min_once(row_min(t, u), slots[it & 1]), 0, th - win);
+    row_gather(t, u, c, umin, table, tc, win, out);
   }
 }
 
@@ -205,24 +513,92 @@ __global__ void __launch_bounds__(kThreads) col_window_kernel(
   }
 }
 
+// Blocks of `kernel` that fit on the current device at once (at least 1),
+// at most n_tiles: the persistent kernels' grid.
+template <typename Kernel>
+int persistent_blocks(Kernel kernel, int n_tiles) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  const int resident = sms * per_sm > 1 ? sms * per_sm : 1;
+  return n_tiles < resident ? n_tiles : resident;
+}
+
+// The instantiation forms the wrappers choose between (trace/exp_warp.py).
+constexpr int kFormGeneral = 0, kFormVector = 1, kFormPersistent = 2;
+
+template <int TY, int TX>
+int onehot_launch(const uint16_t* t_hl, int th, int tw, const int32_t* lin,
+                  float* out, int height, int width, int ty, int tx, int win,
+                  int form, cudaStream_t stream) {
+  if constexpr (TY > 0) {
+    if (form == kFormPersistent) {
+      const int tiles_x = width / TX, n_tiles = tiles_x * (height / TY);
+      const int blocks = persistent_blocks(
+          onehot_window_kernel_persistent<TY, TX>, n_tiles);
+      onehot_window_kernel_persistent<TY, TX><<<blocks, kThreads, 0, stream>>>(
+          t_hl, th, tw, lin, out, width, tiles_x, n_tiles, win);
+      return (int)cudaGetLastError();
+    }
+  }
+  const dim3 grid(width / tx, height / ty);
+  onehot_window_kernel<TY, TX><<<grid, kThreads, 0, stream>>>(
+      t_hl, th, tw, lin, out, width, ty, tx, win);
+  return (int)cudaGetLastError();
+}
+
+template <int TY, int TX>
+int row_launch(const float* table, int th, int tc, const int32_t* row_idx,
+               const int32_t* col_idx, float* out, int height, int width,
+               int win, int form, cudaStream_t stream) {
+  if constexpr (TY > 0) {
+    if (form == kFormPersistent) {
+      const int tiles_x = width / TX, n_tiles = tiles_x * (height / TY);
+      const int blocks = persistent_blocks(
+          row_window_kernel_persistent<TY, TX>, n_tiles);
+      row_window_kernel_persistent<TY, TX><<<blocks, kThreads, 0, stream>>>(
+          table, th, tc, row_idx, col_idx, out, width, tiles_x, n_tiles, win);
+      return (int)cudaGetLastError();
+    }
+  }
+  const dim3 grid(width / 128, height / 8);
+  row_window_kernel<TY, TX><<<grid, kThreads, 0, stream>>>(
+      table, th, tc, row_idx, col_idx, out, width, win);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch contract of every entry point: it launches on `stream` (a
 // cudaStream_t as void*), does not synchronise, and returns
 // cudaGetLastError() (0 on success). The wrappers check shapes, types and
-// divisibility before they call.
+// divisibility before they call. `form` (kernels 1 and 3) is 0 for the
+// general instantiation, 1 for the tile's own, 2 for its persistent form;
+// 1 and 2 need a compile-time tile and 16-byte aligned index fields and
+// output, which the wrappers check (cudaErrorInvalidValue otherwise).
 
 // `t_hl` bf16 bits [2 th, tw] (hi rows, then lo rows), `lin` / `out`
-// [height, width] with height % ty == 0 and width % tx == 0.
+// [height, width] with height % ty == 0 and width % tx == 0; the general
+// form takes tiles of at most kThreads * kMaxPx pixels.
 extern "C" int onehot_window_launch(const uint16_t* t_hl, int th, int tw,
                                     const int32_t* lin, float* out,
                                     int height, int width, int ty, int tx,
-                                    int win, void* stream) {
+                                    int win, int form, void* stream) {
   if (height <= 0 || width <= 0) return 0;
-  const dim3 grid(width / tx, height / ty);
-  onehot_window_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      t_hl, th, tw, lin, out, width, ty, tx, win);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+#define ONEHOT(TY, TX) \
+  onehot_launch<TY, TX>(t_hl, th, tw, lin, out, height, width, ty, tx, win, \
+                        form, s)
+  if (form == kFormGeneral)
+    return ty * tx <= kThreads * kMaxPx ? ONEHOT(0, 0)
+                                        : (int)cudaErrorInvalidValue;
+  if (ty == 8 && tx == 128) return ONEHOT(8, 128);
+  if (ty == 16 && tx == 128) return ONEHOT(16, 128);
+  if (ty == 32 && tx == 128) return ONEHOT(32, 128);
+  if (ty == 16 && tx == 256) return ONEHOT(16, 256);
+#undef ONEHOT
+  return (int)cudaErrorInvalidValue;
 }
 
 // As onehot_window_launch, with 8 x 128 tiles and `kind` 0-3.
@@ -241,13 +617,15 @@ extern "C" int ablate_launch(const uint16_t* t_hl, int th, int tw,
 extern "C" int row_window_launch(const float* table, int th, int tc,
                                  const int32_t* row_idx,
                                  const int32_t* col_idx, float* out,
-                                 int height, int width, int win,
+                                 int height, int width, int win, int form,
                                  void* stream) {
   if (height <= 0 || width <= 0) return 0;
-  const dim3 grid(width / 128, height / 8);
-  row_window_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      table, th, tc, row_idx, col_idx, out, width, win);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (form == kFormGeneral)
+    return row_launch<0, 0>(table, th, tc, row_idx, col_idx, out, height,
+                            width, win, form, s);
+  return row_launch<8, 128>(table, th, tc, row_idx, col_idx, out, height,
+                            width, win, form, s);
 }
 
 // `m_rows` f32 [height, mv]; `col_idx`, `out` [height, width] with

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions:
 ``warp_frame`` (csrc/warp_frame.cu), ``warp_lookup`` /
 ``warp_lookup_multi`` (csrc/warp_lookup.cu), and the warp experiments'
-four kernels (csrc/exp_warp.cu) through every wrapper of
+four kernels (csrc/exp_warp.cu), in every form, through every wrapper of
 ``ray_tracing_octrees_tpu_torch/tools``.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (a
@@ -195,7 +195,7 @@ def test_lookup_kernels_edge_cases(scene, which):
 
 @pytest.fixture(scope="module")
 def exp_edge():
-    """The seeded edge fields of tools/cases.py on the card."""
+    """The seeded edge sets of tools/cases.py on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from ray_tracing_octrees_tpu_torch.tools import cases
@@ -226,18 +226,79 @@ def _hold_cases(case_list, rows):
 @pytest.mark.parametrize("row", [4, 5, 6, 7, 8, 9])
 def test_exp_warp_kernels_match_plain_on_edge_fields(exp_edge, row):
     """Windows that clamp, indices past the table, all-invalid tiles,
-    -0.0 texels, and H % 128 != 0 for the two-pass warp."""
+    -0.0 texels, H % 128 != 0 for the two-pass warp, index fields at a
+    storage offset, a tile count of 45 and a tile of no instantiation:
+    every set of tools/cases.py's edge_inputs."""
     from ray_tracing_octrees_tpu_torch.tools import cases, exp_warp2pass
 
-    assert _hold_cases(cases.kernel_cases(**exp_edge), {row}) > 0
+    assert sum(_hold_cases(cases.kernel_cases(**kw), {row})
+               for kw in exp_edge.values()) > 0
     if row == 9:
-        e = exp_edge
-        out = exp_warp2pass.warp_two_pass(e["t9"], e["iustar"], e["iv9"])
-        ref = exp_warp2pass.warp_two_pass_reference(e["t9"], e["iustar"],
-                                                    e["iv9"])
+        for e in exp_edge.values():
+            if "t9" not in e:
+                continue
+            out = exp_warp2pass.warp_two_pass(e["t9"], e["iustar"], e["iv9"])
+            ref = exp_warp2pass.warp_two_pass_reference(e["t9"], e["iustar"],
+                                                        e["iv9"])
+            torch.cuda.synchronize()
+            assert cases.bits_equal_share(out, ref) == 1.0
+            assert bool((ref != 0).any())
+
+
+# the form each edge set's one-hot cases (kernel 1) and warp_pallas /
+# warp_pass1 cases (kernel 3) launch: the tile's own instantiation unless
+# the tile has none or the index fields are not 16-byte aligned
+EDGE_FORMS = {"edge fields": "vector", "offset views": "general",
+              "72x640": "vector", "invalid 32x128 tiles": "vector"}
+
+
+@pytest.mark.parametrize("label", list(EDGE_FORMS))
+def test_exp_warp_forms_on_edge_fields(exp_edge, label):
+    """Each case launches the form the wrapper should choose, counted in
+    trace/exp_warp.FORM_LAUNCHES, and equals its plain version."""
+    from ray_tracing_octrees_tpu_torch.tools import cases
+    from ray_tracing_octrees_tpu_torch.trace import exp_warp
+
+    for row, name, fn, plain, args in cases.kernel_cases(**exp_edge[label]):
+        if row not in (4, 6, 7, 8, 9) or name == "warp_pass2":
+            continue
+        kernel = "row_window" if row in (6, 9) else "onehot_window"
+        want = EDGE_FORMS[label]
+        if row == 7 and "(8,64)" in name:
+            want = "general"
+        if want == "vector" and exp_warp.PERSISTENT[kernel]:
+            want = "persistent"
+        before = dict(exp_warp.FORM_LAUNCHES)
+        out = fn(*args)
+        got = {k: v - before[k] for k, v in exp_warp.FORM_LAUNCHES.items()
+               if v != before[k]}
+        assert got == {f"{kernel} {want}": 1}, (name, got)
         torch.cuda.synchronize()
-        assert cases.bits_equal_share(out, ref) == 1.0
-        assert bool((ref != 0).any())
+        assert cases.bits_equal_share(out, plain(*args)) == 1.0, name
+
+
+def test_exp_warp_persistent_form_matches_plain(exp_edge, monkeypatch):
+    """The persistent forms of kernels 1 and 3 on every edge set."""
+    from ray_tracing_octrees_tpu_torch.tools import cases
+    from ray_tracing_octrees_tpu_torch.trace import exp_warp
+
+    monkeypatch.setitem(exp_warp.PERSISTENT, "onehot_window", True)
+    monkeypatch.setitem(exp_warp.PERSISTENT, "row_window", True)
+    before = dict(exp_warp.FORM_LAUNCHES)
+    assert sum(_hold_cases(cases.kernel_cases(**kw), {4, 6, 7, 8, 9})
+               for kw in exp_edge.values()) > 0
+    for kernel in ("onehot_window", "row_window"):
+        key = f"{kernel} persistent"
+        assert exp_warp.FORM_LAUNCHES[key] > before[key], key
+
+
+def test_exp_warp_general_form_rejects_large_tiles(exp_edge):
+    """The general instantiation holds at most 4096 pixels a tile."""
+    from ray_tracing_octrees_tpu_torch.tools import exp_warp_tune
+
+    e = exp_edge["edge fields"]
+    with pytest.raises(ValueError):
+        exp_warp_tune.warp(e["t_hl"], e["lin"], 64, 128, 64)
 
 
 DRIVERS = {"exp_onehot_warp": (4, dict(dim=64, width=256, height=128)),
@@ -285,6 +346,6 @@ def test_exp_warp_driver_on_card(module):
 def test_exp_warp_wrappers_raise_for_mixed_devices(exp_edge):
     from ray_tracing_octrees_tpu_torch.tools import exp_onehot_warp
 
+    e = exp_edge["edge fields"]
     with pytest.raises(ValueError):
-        exp_onehot_warp.onehot_warp(exp_edge["t_hl"].cpu(), exp_edge["lin"],
-                                    64)
+        exp_onehot_warp.onehot_warp(e["t_hl"].cpu(), e["lin"], 64)

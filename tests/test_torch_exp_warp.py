@@ -528,3 +528,155 @@ def test_onehot_wrappers_reject_bad_arguments(case):
         t_ab.make_call("select")(tt, ll)
     with pytest.raises(ValueError):
         t_ab.make_call("gather")
+
+
+# --------------------------------------------------------------------------
+# the edge sets of tools/cases.py: every case's plain version against the
+# experiment's Pallas body, interpreted
+# --------------------------------------------------------------------------
+
+from ray_tracing_octrees_tpu_torch.tools import cases as t_cases  # noqa: E402
+from ray_tracing_octrees_tpu_torch.trace import exp_warp as t_ew  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def edge_sets():
+    return t_cases.edge_inputs("cpu")
+
+
+def _interp_pass1(t, ius):
+    """Pass 1 of ``tools/exp_warp2pass.py`` under its grid and specs."""
+    (u, v), h = t.shape, ius.shape[0]
+    return np.asarray(pl.pallas_call(
+        j_w2._pass1_kernel,
+        grid=(h // 8, v // 128),
+        in_specs=[pl.BlockSpec((u, 128), lambda i, j: (0, j)),
+                  pl.BlockSpec((8, 128), lambda i, j: (i, j))],
+        out_specs=pl.BlockSpec((8, 128), lambda i, j: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((h, v), jnp.float32),
+        interpret=True,
+    )(jnp.asarray(t), jnp.asarray(ius)))
+
+
+def _interp_pass2(m, iv):
+    """Pass 2 of ``tools/exp_warp2pass.py`` on ``M``: its transposes, zero
+    padding, grid and specs."""
+    (h, w), v = iv.shape, m.shape[1]
+    hp = (-h) % 128
+    mt = jnp.pad(jnp.transpose(jnp.asarray(m)), ((0, 0), (0, hp)))
+    ivt = jnp.pad(jnp.transpose(jnp.asarray(iv)), ((0, 0), (0, hp)))
+    out_t = pl.pallas_call(
+        j_w2._pass2_kernel,
+        grid=(w // 8, (h + hp) // 128),
+        in_specs=[pl.BlockSpec((v, 128), lambda i, j: (0, j)),
+                  pl.BlockSpec((8, 128), lambda i, j: (i, j))],
+        out_specs=pl.BlockSpec((8, 128), lambda i, j: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((w, h + hp), jnp.float32),
+        interpret=True,
+    )(mt, ivt)
+    return np.asarray(jnp.transpose(out_t[:, :h]))
+
+
+def _pallas_reference(row, name, args):
+    """The experiment's Pallas body, interpreted, on a case's arguments."""
+    np_args = [a.numpy() if torch.is_tensor(a) and a.dtype != torch.bfloat16
+               else a for a in args]
+    if row in (4, 5, 7, 8):
+        j_hl = jnp.asarray(args[0].float().numpy()).astype(jnp.bfloat16)
+        lin = np_args[1]
+        if row == 4:
+            win = args[2]
+            if name.startswith("onehot_warp_grouped"):
+                return _interp(functools.partial(j_ow._kernel_grouped, win),
+                               j_hl, lin, 8, 128,
+                               [pltpu.VMEM((8 * 128, 2 * win), jnp.float32)])
+            return _interp(functools.partial(j_ow._kernel, win), j_hl, lin,
+                           8, 128)
+        if row == 5:
+            return _interp(_ABLATE_BODIES[name.split()[1]], j_hl, lin, 8, 128)
+        ty, tx, win = args[2:5]
+        if row == 7:
+            return _interp(functools.partial(j_wt._kernel, ty, tx, win,
+                                             args[5]), j_hl, lin, ty, tx,
+                           [pltpu.VMEM((ty * tx, 2 * win), jnp.float32)])
+        slim = name.startswith("warp_slim")
+        return _interp(functools.partial(
+            j_wt2._k_slim if slim else j_wt2._k_persel, ty, tx, win), j_hl,
+            lin, ty, tx,
+            [pltpu.VMEM((ty * tx, win) if slim else (ty, tx), jnp.float32)])
+    if row == 6:
+        return np.asarray(j_wk.warp_pallas(*map(jnp.asarray, np_args),
+                                           interpret=True))
+    if name == "warp_pass1":
+        return _interp_pass1(*np_args)
+    return _interp_pass2(*np_args)
+
+
+EDGE_ROWS = [("edge fields", 7)] + [
+    (label, row) for label in ("offset views", "72x640")
+    for row in (4, 5, 6, 7, 8, 9)
+    if not (label == "72x640" and row == 8)] + [
+    ("invalid 32x128 tiles", row) for row in (4, 5, 7, 8)]
+
+
+@pytest.mark.parametrize("label,row", EDGE_ROWS)
+def test_edge_sets_match_interpret(edge_sets, label, row):
+    """Each wrapper on the edge set's CPU tensors (its plain version)
+    equals the experiment's Pallas body bit for bit: index fields at a
+    storage offset, 45 tiles of 8 x 128, whole invalid 32 x 128 tiles, and
+    ``warp`` at the tile (8, 64), which has no instantiation on the card."""
+    kc = [c for c in t_cases.kernel_cases(**edge_sets[label]) if c[0] == row]
+    assert kc
+    for _, name, fn, plain, args in kc:
+        out = fn(*args)
+        assert _bits_equal(out.numpy(), _pallas_reference(row, name, args)), \
+            name
+        assert _bits_equal(plain(*args).numpy(), out.numpy()), name
+
+
+def test_edge_sets_have_their_structure(edge_sets):
+    """The offset views are contiguous and not 16-byte aligned, 72 x 640
+    holds 45 tiles of 8 x 128, the invalid set has whole invalid 32 x 128
+    tiles beside valid ones, and every set adds the tile (8, 64)."""
+    base, off = edge_sets["edge fields"], edge_sets["offset views"]
+    for k in ("lin", "iu", "iv", "iustar", "iv9"):
+        assert off[k].is_contiguous() and off[k].storage_offset() == 1
+        assert off[k].data_ptr() % 16 != 0
+        assert torch.equal(off[k], base[k])
+    h, w = edge_sets["72x640"]["lin"].shape
+    assert (h // 8) * (w // 128) == 45
+    lin = edge_sets["invalid 32x128 tiles"]["lin"].numpy()
+    tiles = lin.reshape(2, 32, 4, 128).transpose(0, 2, 1, 3).reshape(8, -1)
+    whole = (tiles < 0).all(axis=1)
+    assert whole.sum() == 3 and (tiles >= 0).any(axis=1).sum() == 5
+    assert all(s["tiles"] == (t_cases.GENERAL_TILE,)
+               for s in edge_sets.values())
+    assert (t_cases.GENERAL_TILE[:2] not in t_ew.ONEHOT_TILES)
+
+
+FORMS = {"aligned": (True, 0, "vector"),
+         "offset 1": (True, 1, "general"),
+         "offset 4": (True, 4, "vector"),
+         "no instantiation": (False, 0, "general")}
+
+
+@pytest.mark.parametrize("case", list(FORMS))
+def test_kernel_form_choice(case):
+    """The tile's own instantiation only where it has one and every index
+    field is 16-byte aligned."""
+    instantiated, offset, want = FORMS[case]
+    flat = torch.zeros(64 + offset, dtype=torch.int32)
+    idx = flat[offset:]
+    assert t_ew.form(instantiated, idx) == want
+    assert t_ew.form(instantiated, torch.zeros(64, dtype=torch.int32),
+                     idx) == want
+
+
+def test_kernel_32bit_offsets_checked():
+    """Kernels 1 and 3 index with 32-bit offsets: an input of 2^31
+    elements is refused."""
+    t_ew._check_32bit(lin=torch.zeros(1, dtype=torch.int32).expand(2 ** 31
+                                                                    - 1))
+    with pytest.raises(ValueError):
+        t_ew._check_32bit(lin=torch.zeros(1, dtype=torch.int32).expand(
+            2 ** 31))
