@@ -293,6 +293,7 @@ def experiments(smi: str) -> list:
                7: exp_warp_tune, 8: exp_warp_tune2, 9: exp_warp2pass}
     launches = {}    # per row: its wrappers' launches in its own driver
     forms = {}       # per row: kernels 1 and 3's launches by form, the same
+                     # run
     results = {}
     for row, mod in drivers.items():
         for _, fn in wrappers.values():
@@ -429,9 +430,6 @@ def experiments(smi: str) -> list:
                 exp_warp2pass.warp_two_pass_reference, r9["table"],
                 r9["iustar"], r9["iv"]), 20 * n_px))],
     }
-    # the kernel whose persistent form each row compares with its own
-    persistent_of = {4: "onehot_window", 6: "row_window", 7: "onehot_window",
-                     8: "onehot_window", 9: "row_window"}
     plains = {
         4: (lambda: exp_onehot_warp.onehot_warp_reference(
             o4["t_hl"], o4["lin"], 64), results[4]["inputs"]["tables"][0],
@@ -450,6 +448,7 @@ def experiments(smi: str) -> list:
         9: (lambda: exp_warp2pass.warp_two_pass_reference(
             r9["table"], r9["iustar"], r9["iv"]), r9["table"], r9["lin"]),
     }
+
     def device_ms(fn, names):
         """(device ms per call of the kernels ``names``, by kernel) under
         the profiler over 50 calls of ``fn``."""
@@ -469,32 +468,20 @@ def experiments(smi: str) -> list:
             dev_ms, per = device_ms(kern, names)
             copies = [tuple(f.clone() for f in fields) for _ in range(N_COLD)]
             cold_ms, cold_per = device_ms(rotating(call, copies), names)
-            b_ms, b_by = bound(nbytes, ops)
-            entry = dict(variant=label, ms=dev_ms or k_ms,
-                         ms_source=MS_SOURCE[bool(dev_ms)],
-                         wrapper_ms=k_ms, kernel_device_ms=per,
-                         ms_cold=cold_ms or None,
-                         kernel_device_ms_cold=cold_per, bound_ms=b_ms,
-                         bound_by=b_by, bound_bytes=nbytes)
-            if row in persistent_of:
-                exp_warp.PERSISTENT[persistent_of[row]] = True
-                entry["persistent"] = dict(
-                    zip(("ms", "kernel_device_ms"), device_ms(kern, names)))
-                entry["persistent"].update(zip(
-                    ("ms_cold", "kernel_device_ms_cold"),
-                    device_ms(rotating(call, copies), names)))
-                exp_warp.PERSISTENT[persistent_of[row]] = False
             del copies
-            timed.append(entry)
+            b_ms, b_by = bound(nbytes, ops)
+            timed.append(dict(variant=label, ms=dev_ms or k_ms,
+                              ms_source=MS_SOURCE[bool(dev_ms)],
+                              wrapper_ms=k_ms, kernel_device_ms=per,
+                              ms_cold=cold_ms or None,
+                              kernel_device_ms_cold=cold_per, bound_ms=b_ms,
+                              bound_by=b_by, bound_bytes=nbytes))
             log("experiments", f"[{smi}] row {row} {label}: kernel "
                 + (f"{dev_ms:.4f} ms warm, {cold_ms:.4f} ms cold under the "
                    f"profiler (" + ", ".join(
                        f"{n} {v:.4f}/{cold_per[n]:.4f}"
                        for n, v in per.items()) + ")"
                    if dev_ms else "not measured: the profiler saw no kernel")
-                + (f", persistent {entry['persistent']['ms']:.4f} warm, "
-                   f"{entry['persistent']['ms_cold']:.4f} cold"
-                   if "persistent" in entry else "")
                 + f", wrapper {k_ms:.4f} ms (CUDA events), bound "
                 f"{b_ms * 1e3:.2f} us ({b_by}; {nbytes} bytes)")
         plain, table, lin = plains[row]

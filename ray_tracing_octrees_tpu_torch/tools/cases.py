@@ -3,7 +3,7 @@ the seeded edge fields on which each window rule shows.
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold each CUDA kernel
 bitwise against its plain version over :func:`kernel_cases` of the
-drivers' inputs and of each set of :func:`edge_inputs`.
+experiments' own inputs and of each set of :func:`edge_inputs`.
 """
 
 from __future__ import annotations

@@ -48,7 +48,7 @@
 // is new on every frame, so it comes from device memory, not from L2.
 //
 // Kernels 1 and 3, the gathers, are built for Hopper:
-//   - a compile-time tile: one instantiation per tile the drivers use
+//   - a compile-time tile: one instantiation per tile the experiments use
 //     (kernel 1: 8x128, 16x128, 32x128, 16x256; kernel 3: 8x128), so a
 //     pixel's row and column are shifts and masks, on 32-bit offsets (the
 //     wrappers check that the image and the table hold fewer than 2^31
@@ -60,12 +60,18 @@
 //   - all texel loads of a thread in flight before the first add (its loop
 //     over its pixels is unrolled; a pixel that needs no texel loads the
 //     table's first one), and the outputs written as 16-byte stores;
-//   - any other tile, and index fields or outputs that are not 16-byte
-//     aligned (a contiguous view at a storage offset), take the general
-//     instantiation: the tile at run time, 4-byte loads and stores, at most
-//     kMaxPx pixels a thread (a tile of at most 4096), each index field
-//     still read once.
-//   - PERSISTENT-NOTE
+//   - any other tile, and index fields that are not 16-byte aligned (a
+//     contiguous view at a storage offset; the output is a fresh, aligned
+//     allocation), take the general instantiation: the tile at run time,
+//     4-byte loads and stores, at most kMaxPx pixels a thread (a tile of
+//     at most 4096), each index field still read once.
+//   - not taken, measured: a persistent grid (about as many blocks as fit
+//     on the card, each walking tiles and staging the next tile's indices
+//     into a two-slot shared ring with cp.async) took 1.03-1.22 times the
+//     time of one tile per block for kernel 1 at 8 x 128, the experiments'
+//     main tile (kernel 3: 0.99-1.07), and 0.97-1.05 times at the larger
+//     tiles (PERF.md): 2,040 tiles of 8 x 128 already keep about two waves
+//     of blocks resident.
 // Not taken: fetching hi and lo as one 4-byte word. The experiments' input
 // is the planar t_hl [2 TH, TW]: a repack on every call moves 4 MB more
 // than it saves, and a packed copy cached against the tensor goes stale
@@ -198,49 +204,7 @@ struct Tile {
     }
   }
 
-  // Vector form: start copying the runs of src into `ring` at their tile
-  // positions (cp.async, 16 bytes each; the caller commits the group).
-  __device__ __forceinline__ void stage(const int32_t* __restrict__ src,
-                                        int* ring) const {
-#pragma unroll
-    for (int g = 0; g < kN / 4; ++g) {
-      const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(
-          ring + 4 * (threadIdx.x + g * kThreads)));
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                   :: "r"(dst), "l"(src + off[4 * g]) : "memory");
-    }
-  }
-
-  // Vector form: the runs that stage() copied into `ring`.
-  __device__ __forceinline__ void load_staged(const int* ring,
-                                              int (&v)[kN]) const {
-#pragma unroll
-    for (int g = 0; g < kN / 4; ++g) {
-      const int4 t = reinterpret_cast<const int4*>(ring)[threadIdx.x +
-                                                         g * kThreads];
-      v[4 * g] = t.x;
-      v[4 * g + 1] = t.y;
-      v[4 * g + 2] = t.z;
-      v[4 * g + 3] = t.w;
-    }
-  }
 };
-
-template <int TY, int TX>
-__device__ __forceinline__ Tile<TY, TX> tile_at(int tile, int tiles_x,
-                                                int width) {
-  const int ty = tile / tiles_x;
-  return Tile<TY, TX>(ty * TY, (tile - ty * tiles_x) * TX, width, TY, TX);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until this thread's copies of all but the newest group have landed.
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // Kernel 1's min over the pixels a thread holds: iu = lin < 0 ? th-1 :
 // lin >> 10.
@@ -256,7 +220,7 @@ __device__ __forceinline__ int onehot_min(const Tile<TY, TX>& t,
 }
 
 // Kernel 1's gather and store of the pixels a thread holds: every hi and lo
-// texel load issued before the first add. An invalid pixel loads texel 0.
+// texel load started before the first add. An invalid pixel loads texel 0.
 template <int TY, int TX>
 __device__ __forceinline__ void onehot_gather(
     const Tile<TY, TX>& t, const int (&l)[Tile<TY, TX>::kN], int umin,
@@ -297,40 +261,6 @@ __global__ void __launch_bounds__(kThreads) onehot_window_kernel(
       (clampi(block_min_once(onehot_min(t, l, th), slots), 0, th - win) >> 3)
       << 3;
   onehot_gather(t, l, umin, t_hl, th * tw, tw, win, out);
-}
-
-// 1, persistent: about as many blocks as fit on the card, each walking the
-// tiles tile = blockIdx.x, + gridDim.x, ... It stages the next tile's lin
-// into a two-slot shared ring with cp.async while it gathers the current
-// one; each thread reads back only the runs it copied, so its own
-// cp.async.wait_group orders them, and the one barrier per tile (in the
-// min, whose slots alternate) orders the ring's reuse.
-template <int TY, int TX>
-__global__ void __launch_bounds__(kThreads) onehot_window_kernel_persistent(
-    const uint16_t* __restrict__ t_hl, int th, int tw,
-    const int32_t* __restrict__ lin, float* __restrict__ out, int width,
-    int tiles_x, int n_tiles, int win) {
-  using T = Tile<TY, TX>;
-  static_assert(T::kVector, "the persistent form needs a compile-time tile");
-  __shared__ __align__(16) int ring[2][TY * TX];
-  __shared__ __align__(16) int slots[2][kWarps];
-  int tile = blockIdx.x;
-  tile_at<TY, TX>(tile, tiles_x, width).stage(lin, ring[0]);
-  cp_async_commit();
-  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
-    const int next = tile + gridDim.x;
-    if (next < n_tiles)
-      tile_at<TY, TX>(next, tiles_x, width).stage(lin, ring[(it + 1) & 1]);
-    cp_async_commit();
-    cp_async_wait_prev();
-    const T t = tile_at<TY, TX>(tile, tiles_x, width);
-    int l[T::kN];
-    t.load_staged(ring[it & 1], l);
-    const int umin = (clampi(block_min_once(onehot_min(t, l, th),
-                                            slots[it & 1]),
-                             0, th - win) >> 3) << 3;
-    onehot_gather(t, l, umin, t_hl, th * tw, tw, win, out);
-  }
 }
 
 // 2. The four ablations of 1, on 8 x 128 tiles with a 64-row window.
@@ -376,7 +306,7 @@ __global__ void __launch_bounds__(kThreads) ablate_kernel(
 }
 
 // Kernel 3's gather and store of the pixels a thread holds (rows u,
-// columns c): every texel load issued before the first add. A pixel outside
+// columns c): every texel load started before the first add. A pixel outside
 // the window loads texel 0.
 template <int TY, int TX>
 __device__ __forceinline__ void row_gather(
@@ -441,48 +371,6 @@ __global__ void __launch_bounds__(kThreads) row_window_kernel(
   row_gather(t, u, c, umin, table, tc, win, out);
 }
 
-// 3, persistent: as onehot_window_kernel_persistent, staging row_idx and
-// col_idx (when given) of the next tile.
-template <int TY, int TX>
-__global__ void __launch_bounds__(kThreads) row_window_kernel_persistent(
-    const float* __restrict__ table, int th, int tc,
-    const int32_t* __restrict__ row_idx, const int32_t* __restrict__ col_idx,
-    float* __restrict__ out, int width, int tiles_x, int n_tiles, int win) {
-  using T = Tile<TY, TX>;
-  static_assert(T::kVector, "the persistent form needs a compile-time tile");
-  __shared__ __align__(16) int ring[2][2][TY * TX];   // [slot][row, col]
-  __shared__ __align__(16) int slots[2][kWarps];
-  int tile = blockIdx.x;
-  {
-    const T t0 = tile_at<TY, TX>(tile, tiles_x, width);
-    t0.stage(row_idx, ring[0][0]);
-    if (col_idx) t0.stage(col_idx, ring[0][1]);
-  }
-  cp_async_commit();
-  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
-    const int next = tile + gridDim.x;
-    if (next < n_tiles) {
-      const T tn = tile_at<TY, TX>(next, tiles_x, width);
-      tn.stage(row_idx, ring[(it + 1) & 1][0]);
-      if (col_idx) tn.stage(col_idx, ring[(it + 1) & 1][1]);
-    }
-    cp_async_commit();
-    cp_async_wait_prev();
-    const T t = tile_at<TY, TX>(tile, tiles_x, width);
-    int u[T::kN], c[T::kN];
-    t.load_staged(ring[it & 1][0], u);
-    if (col_idx) {
-      t.load_staged(ring[it & 1][1], c);
-    } else {
-#pragma unroll
-      for (int i = 0; i < T::kN; ++i) c[i] = t.x[i];
-    }
-    const int umin =
-        clampi(block_min_once(row_min(t, u), slots[it & 1]), 0, th - win);
-    row_gather(t, u, c, umin, table, tc, win, out);
-  }
-}
-
 // 4. f32 column-window select for the two-pass warp's second pass, on
 // tiles of 8 x by 128 y of the transposed image (y padded to a multiple of
 // 128 with zero indices). Grid (W / 8, ceil(H / 128)).
@@ -513,35 +401,13 @@ __global__ void __launch_bounds__(kThreads) col_window_kernel(
   }
 }
 
-// Blocks of `kernel` that fit on the current device at once (at least 1),
-// at most n_tiles: the persistent kernels' grid.
-template <typename Kernel>
-int persistent_blocks(Kernel kernel, int n_tiles) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  const int resident = sms * per_sm > 1 ? sms * per_sm : 1;
-  return n_tiles < resident ? n_tiles : resident;
-}
-
 // The instantiation forms the wrappers choose between (trace/exp_warp.py).
-constexpr int kFormGeneral = 0, kFormVector = 1, kFormPersistent = 2;
+constexpr int kFormGeneral = 0, kFormVector = 1;
 
 template <int TY, int TX>
 int onehot_launch(const uint16_t* t_hl, int th, int tw, const int32_t* lin,
                   float* out, int height, int width, int ty, int tx, int win,
-                  int form, cudaStream_t stream) {
-  if constexpr (TY > 0) {
-    if (form == kFormPersistent) {
-      const int tiles_x = width / TX, n_tiles = tiles_x * (height / TY);
-      const int blocks = persistent_blocks(
-          onehot_window_kernel_persistent<TY, TX>, n_tiles);
-      onehot_window_kernel_persistent<TY, TX><<<blocks, kThreads, 0, stream>>>(
-          t_hl, th, tw, lin, out, width, tiles_x, n_tiles, win);
-      return (int)cudaGetLastError();
-    }
-  }
+                  cudaStream_t stream) {
   const dim3 grid(width / tx, height / ty);
   onehot_window_kernel<TY, TX><<<grid, kThreads, 0, stream>>>(
       t_hl, th, tw, lin, out, width, ty, tx, win);
@@ -551,17 +417,7 @@ int onehot_launch(const uint16_t* t_hl, int th, int tw, const int32_t* lin,
 template <int TY, int TX>
 int row_launch(const float* table, int th, int tc, const int32_t* row_idx,
                const int32_t* col_idx, float* out, int height, int width,
-               int win, int form, cudaStream_t stream) {
-  if constexpr (TY > 0) {
-    if (form == kFormPersistent) {
-      const int tiles_x = width / TX, n_tiles = tiles_x * (height / TY);
-      const int blocks = persistent_blocks(
-          row_window_kernel_persistent<TY, TX>, n_tiles);
-      row_window_kernel_persistent<TY, TX><<<blocks, kThreads, 0, stream>>>(
-          table, th, tc, row_idx, col_idx, out, width, tiles_x, n_tiles, win);
-      return (int)cudaGetLastError();
-    }
-  }
+               int win, cudaStream_t stream) {
   const dim3 grid(width / 128, height / 8);
   row_window_kernel<TY, TX><<<grid, kThreads, 0, stream>>>(
       table, th, tc, row_idx, col_idx, out, width, win);
@@ -574,9 +430,9 @@ int row_launch(const float* table, int th, int tc, const int32_t* row_idx,
 // cudaStream_t as void*), does not synchronise, and returns
 // cudaGetLastError() (0 on success). The wrappers check shapes, types and
 // divisibility before they call. `form` (kernels 1 and 3) is 0 for the
-// general instantiation, 1 for the tile's own, 2 for its persistent form;
-// 1 and 2 need a compile-time tile and 16-byte aligned index fields and
-// output, which the wrappers check (cudaErrorInvalidValue otherwise).
+// general instantiation, 1 for the tile's own, which needs a compile-time
+// tile and 16-byte aligned index fields and output: the wrappers check
+// (cudaErrorInvalidValue otherwise).
 
 // `t_hl` bf16 bits [2 th, tw] (hi rows, then lo rows), `lin` / `out`
 // [height, width] with height % ty == 0 and width % tx == 0; the general
@@ -588,11 +444,11 @@ extern "C" int onehot_window_launch(const uint16_t* t_hl, int th, int tw,
   if (height <= 0 || width <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
 #define ONEHOT(TY, TX) \
-  onehot_launch<TY, TX>(t_hl, th, tw, lin, out, height, width, ty, tx, win, \
-                        form, s)
+  onehot_launch<TY, TX>(t_hl, th, tw, lin, out, height, width, ty, tx, win, s)
   if (form == kFormGeneral)
     return ty * tx <= kThreads * kMaxPx ? ONEHOT(0, 0)
                                         : (int)cudaErrorInvalidValue;
+  if (form != kFormVector) return (int)cudaErrorInvalidValue;
   if (ty == 8 && tx == 128) return ONEHOT(8, 128);
   if (ty == 16 && tx == 128) return ONEHOT(16, 128);
   if (ty == 32 && tx == 128) return ONEHOT(32, 128);
@@ -623,9 +479,11 @@ extern "C" int row_window_launch(const float* table, int th, int tc,
   const cudaStream_t s = (cudaStream_t)stream;
   if (form == kFormGeneral)
     return row_launch<0, 0>(table, th, tc, row_idx, col_idx, out, height,
-                            width, win, form, s);
-  return row_launch<8, 128>(table, th, tc, row_idx, col_idx, out, height,
-                            width, win, form, s);
+                            width, win, s);
+  if (form == kFormVector)
+    return row_launch<8, 128>(table, th, tc, row_idx, col_idx, out, height,
+                              width, win, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // `m_rows` f32 [height, mv]; `col_idx`, `out` [height, width] with

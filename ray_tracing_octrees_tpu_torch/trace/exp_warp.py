@@ -28,9 +28,7 @@ from ray_tracing_octrees_tpu_torch.trace import _build
 ONEHOT_TILES = ((8, 128), (16, 128), (32, 128), (16, 256))
 # the general instantiation holds at most 16 pixels in each of 256 threads
 GENERAL_MAX_PX = 256 * 16
-# stage the next tile's indices in a persistent grid (form 2 of the source)
-PERSISTENT = {"onehot_window": False, "row_window": False}
-_FORM_CODE = {"general": 0, "vector": 1, "persistent": 2}
+_FORM_CODE = {"general": 0, "vector": 1}
 FORM_LAUNCHES: Dict[str, int] = {
     f"{k} {f}": 0 for k in ("onehot_window", "row_window")
     for f in _FORM_CODE}
@@ -85,10 +83,7 @@ def _check_32bit(**tensors: torch.Tensor) -> None:
 def _launch_form(kernel: str, entry: str, tile_form: str, like, shape,
                  *args) -> torch.Tensor:
     """:func:`_call` of ``entry`` with the source's code of ``tile_form``
-    (persistent where :data:`PERSISTENT` asks for it) appended to
-    ``args``; counts the launch in :data:`FORM_LAUNCHES`."""
-    if tile_form == "vector" and PERSISTENT[kernel]:
-        tile_form = "persistent"
+    appended to ``args``; counts the launch in :data:`FORM_LAUNCHES`."""
     out = _call(entry, like, shape, *args, _FORM_CODE[tile_form])
     FORM_LAUNCHES[f"{kernel} {tile_form}"] += 1
     return out

@@ -266,8 +266,6 @@ def test_exp_warp_forms_on_edge_fields(exp_edge, label):
         want = EDGE_FORMS[label]
         if row == 7 and "(8,64)" in name:
             want = "general"
-        if want == "vector" and exp_warp.PERSISTENT[kernel]:
-            want = "persistent"
         before = dict(exp_warp.FORM_LAUNCHES)
         out = fn(*args)
         got = {k: v - before[k] for k, v in exp_warp.FORM_LAUNCHES.items()
@@ -275,21 +273,6 @@ def test_exp_warp_forms_on_edge_fields(exp_edge, label):
         assert got == {f"{kernel} {want}": 1}, (name, got)
         torch.cuda.synchronize()
         assert cases.bits_equal_share(out, plain(*args)) == 1.0, name
-
-
-def test_exp_warp_persistent_form_matches_plain(exp_edge, monkeypatch):
-    """The persistent forms of kernels 1 and 3 on every edge set."""
-    from ray_tracing_octrees_tpu_torch.tools import cases
-    from ray_tracing_octrees_tpu_torch.trace import exp_warp
-
-    monkeypatch.setitem(exp_warp.PERSISTENT, "onehot_window", True)
-    monkeypatch.setitem(exp_warp.PERSISTENT, "row_window", True)
-    before = dict(exp_warp.FORM_LAUNCHES)
-    assert sum(_hold_cases(cases.kernel_cases(**kw), {4, 6, 7, 8, 9})
-               for kw in exp_edge.values()) > 0
-    for kernel in ("onehot_window", "row_window"):
-        key = f"{kernel} persistent"
-        assert exp_warp.FORM_LAUNCHES[key] > before[key], key
 
 
 def test_exp_warp_general_form_rejects_large_tiles(exp_edge):
