@@ -7,17 +7,23 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
   1. device   require CUDA; print the card's name and power limit
   2. build    compile every CUDA kernel of the paths with nvcc (one process
               per source, all started together); print each kernel's
-              registers and spills (ptxas -v) and refuse a spill in
-              csrc/exp_warp.cu
+              registers, spills and stack frame (ptxas -v); refuse a spill
+              in any source and a stack frame in csrc/warp_frame.cu and
+              csrc/warp_lookup.cu
   3. scene    the reference's 256^3 sphere and its directional shadow volume
   4. frame    1920x1080 frames at the bench pose through render_fast_frame,
               with every kernel's launch count read around the run; the
               frame must hold lit, shadowed and background pixels, and a
               small frame on the card must agree with the same frame on
               the CPU (plain versions)
-  5. kernels  warp_frame against its plain PyTorch version on the card, at
-              the main path's shapes, for three poses
-  6. timing   frame ms, Mrays/s, and warp_frame's time beside its bound
+  5. kernels  warp_frame against its plain PyTorch version on the card,
+              bitwise, at the main path's shapes for three poses, and in
+              every instantiation (sweep axis x shadow flag, forced on the
+              bench pose's table) at 1920x1080 and at a width that is not
+              a multiple of 4
+  6. timing   frame ms, Mrays/s, and warp_frame's time beside its bound and
+              the first port's kernel (timed in turns); the pixels that
+              shade, and the class-weighted operation count
   7. first hit  sweep_first_hit at 1920x1080 and the bench pose, its
               launch counts read around the run
   8. exact    1920x1080 frames of render_fast_exact_frame with the shadow
@@ -32,11 +38,16 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               where every mismatch must be a grazing crossing; then both
               on the 32^3 sphere on the card and on the CPU, which must
               give equal hit masks and equal t
-  10. lookups warp_lookup on sweep_first_hit's 1024^2 table and 1080p lin,
-              warp_lookup_multi on the exact frame's three planes at both
-              radius-2.0 poses, each bitwise against its plain version;
-              their times beside the byte bound, the plain version and one
-              torch.take of the decoded index
+  10. lookups warp_lookup on sweep_first_hit's 1024^2 table and 1080p lin
+              and on edge fields made from it (a view at a 4-byte offset, a
+              pixel count not a multiple of 4, all and no misses), each
+              launching the form lookup_form chooses; warp_lookup_multi on
+              the exact frame's three planes at both radius-2.0 poses; each
+              bitwise against its plain version; their times warm and cold
+              (N_COLD copies of lin) beside the byte bound, the plain
+              version and one torch.take of the decoded index (warm and
+              cold), and warp_lookup's bodies in turns: the first port's
+              (the multi-plane kernel at one plane) and the vector form
   11. experiments  the six warp experiments' drivers (tools/exp_*warp*),
               each run("cuda") once at 1920x1088 with every launch count
               set to 0 before it and read after it; then every wrapper of
@@ -78,6 +89,15 @@ PEAK_F32_S = 67e12
 # f32 operations per pixel in warp_frame.cu, counted from the source
 # (ray 20, plane + texel 13, depth 12, normal 3x16 + 1, Lambert 5, colour 18)
 WARP_OPS_PER_PIXEL = 117
+# f32 operations of a pixel that stops after its texel (a miss, or a
+# shadowed hit with shadows on): the ray 20 and the plane + texel 13
+WARP_OPS_EARLY_EXIT = 33
+# ... and of a lit pixel whose normal faces away from the light: all but
+# the normal's length (6), Lambert (5) and the colour (18)
+WARP_OPS_BACK_FACING = 88
+# frame sizes of the instantiation checks: the store form of widths that
+# are a multiple of 4, and the general form
+FRAME_SIZES = ((WIDTH, HEIGHT), (WIDTH - 3, HEIGHT - 1))
 # what a kernel's "ms" is: its own device time under torch.profiler, or,
 # where the profiler records none, CUDA events around back-to-back calls
 # of its Python wrapper (which then include the wrapper's host time)
@@ -156,6 +176,12 @@ def profiled(fn, iters: int):
     return wall, per
 
 
+def equal_share(a, b) -> float:
+    """Share of elements of ``a`` equal to ``b``, from the exact count of
+    those that differ (an f32 mean of 2 M ones need not round to 1)."""
+    return 1.0 - int((a != b).sum()) / a.numel()
+
+
 def rotating(fn, copies):
     """``fn(*copies[k % len(copies)])`` on the k-th call: each call reads
     other index fields, so with enough copies none is left in L2."""
@@ -164,23 +190,126 @@ def rotating(fn, copies):
 
 
 def ptxas_report(log: str) -> dict:
-    """{kernel (mangled name): (registers, spill bytes)} from the output
-    of ``nvcc -Xptxas=-v``."""
+    """{kernel (mangled name): {"registers", "spill_bytes",
+    "stack_frame_bytes"}} from the output of ``nvcc -Xptxas=-v``."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             fn = m.group(1)
+            out.setdefault(fn, dict(registers=0, spill_bytes=0,
+                                    stack_frame_bytes=0))
             continue
+        if not fn:
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[fn]["stack_frame_bytes"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and fn:
-            out[fn] = (out.get(fn, (0, 0))[0], int(m.group(1))
-                       + int(m.group(2)))
+        if m:
+            out[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
-        if m and fn:
-            out[fn] = (int(m.group(1)), out.get(fn, (0, 0))[1])
+        if m:
+            out[fn]["registers"] = int(m.group(1))
     return out
+
+
+def kernel_resources(report: dict, name: str) -> dict:
+    """{mangled kernel name: ptxas figures} of the kernels whose name
+    holds ``name`` (a kernel function's name, as it appears mangled)."""
+    return {fn: r for fn, r in report.items() if name in fn}
+
+
+def compare_first_port_frame(table, kscal, axis_world, has_sh):
+    """Device ms of the first port's warp_frame kernel and of the new one
+    on the same inputs, timed in turns (first, new, new, first) under the
+    profiler, 50 calls each; the outputs must be equal."""
+    import torch
+
+    from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
+
+    ks = wk._check(table, kscal, axis_world, WIDTH, HEIGHT)
+    lib = wk._build.load("warp_frame")
+    runs = {"first port": (lambda: wk._launch_first_port(
+                table, ks, axis_world, WIDTH, HEIGHT, has_sh),
+                "first_port_frame_kernel"),
+            "new": (lambda: wk._launch(
+                lib, table, ks, axis_world, WIDTH, HEIGHT, has_sh),
+                "warp_frame_kernel"),
+            "new, dividing by vox": (lambda: wk._launch(
+                lib, table, ks, axis_world, WIDTH, HEIGHT, has_sh, 0.0),
+                "warp_frame_kernel")}
+    outs = [fn() for fn, _ in runs.values()]
+    torch.cuda.synchronize()
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
+        raise RuntimeError("the new warp_frame kernel differs from the "
+                           "first port's")
+    times = {k: [] for k in runs}
+    for k in ("first port", "new", "new, dividing by vox",
+              "new, dividing by vox", "new", "first port"):
+        fn, name = runs[k]
+        _, per = profiled(fn, 50)
+        times[k].append(sum(v for n, v in per.items() if name in n))
+    log("timing", "warp_frame device ms in turns (first port, new, new "
+        "dividing, new dividing, new, first port): " + ", ".join(
+            f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in times.items()))
+    return {k: min(v) for k, v in times.items()}
+
+
+def lookup_edge_inputs(lin):
+    """{label: (lin field, the warp_lookup form it should launch)} made
+    from a real lin field: a view at a 4-byte storage offset, a pixel
+    count that is not a multiple of 4, every pixel a miss, none."""
+    import torch
+
+    flat = lin.reshape(-1)
+    buf = torch.empty(flat.numel() + 1, dtype=lin.dtype, device=lin.device)
+    buf[1:] = flat
+    return {"offset view": (buf[1:].view(lin.shape), "general"),
+            "ragged": (flat[:-3].clone(), "general"),
+            "all miss": (torch.full_like(lin, -1), "vector"),
+            "no miss": (torch.where(lin < 0, 0, lin), "vector")}
+
+
+def compare_lookup_bodies(tab, ln, lins, dev_ms_of):
+    """Device ms, warm and cold, of the single-plane lookup's bodies in
+    turns: the first port's (the multi-plane kernel at one plane) against
+    the vector form, and the vector form at 4 and at 8 pixels a thread.
+    Returns the first port's times."""
+    from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
+
+    first = ("warp_lookup_kernel",)
+    vector = ("warp_lookup_vector_kernel",)
+
+    def vec(px):
+        def run(x):
+            wk.LOOKUP_VECTOR_PX = px
+            try:
+                return wk.warp_lookup(tab, x)
+            finally:
+                wk.LOOKUP_VECTOR_PX = 4
+        return run
+
+    bodies = {"first port": (lambda x: wk.warp_lookup_multi(tab[None], x),
+                             first),
+              "vector 4": (vec(4), vector), "vector 8": (vec(8), vector)}
+    times = {}
+    for k in ("first port", "vector 4", "vector 8", "vector 8", "vector 4",
+              "first port"):
+        fn, names = bodies[k]
+        warm = dev_ms_of(lambda: fn(ln), names)
+        cold = dev_ms_of(rotating(fn, lins), names)
+        times.setdefault(k, []).append((warm, cold))
+    log("lookups", "warp_lookup bodies in turns, device ms warm/cold: "
+        + ", ".join(f"{k} " + " ".join(f"{w:.4f}/{c:.4f}" for w, c in v)
+                    for k, v in times.items()))
+    best = {k: (min(w for w, _ in v), min(c for _, c in v))
+            for k, v in times.items()}
+    return {"first_port_ms": best["first port"][0],
+            "first_port_ms_cold": best["first port"][1],
+            "vector_px_ms": {k: v for k, v in best.items()
+                             if k.startswith("vector")}}
 
 
 def frame_classes(img):
@@ -582,14 +711,22 @@ def main() -> int:
     _build.build(kernels)
     log("build", f"{kernels} in {time.perf_counter() - t:.2f} s wall; "
         + ", ".join(f"{k} {s:.2f} s" for k, s in _build.BUILD_SECONDS.items()))
+    ptxas = {}
     for name, text in _build.BUILD_LOG.items():
-        report = ptxas_report(text)
-        for fn, (regs, spill) in report.items():
-            log("build", f"{name} ptxas: {fn}: {regs} registers, {spill} "
-                f"bytes spilled")
-        spilled = [fn for fn, (_, spill) in report.items() if spill]
-        if name == "exp_warp" and spilled:
-            raise RuntimeError(f"exp_warp.cu kernels spill: {spilled}")
+        ptxas[name] = report = ptxas_report(text)
+        for fn, r in report.items():
+            log("build", f"{name} ptxas: {fn}: {r['registers']} registers, "
+                f"{r['spill_bytes']} bytes spilled, {r['stack_frame_bytes']} "
+                f"bytes stack frame")
+        spilled = [fn for fn, r in report.items() if r["spill_bytes"]]
+        if spilled:
+            raise RuntimeError(f"{name}.cu kernels spill: {spilled}")
+        stacked = [fn for fn, r in report.items() if r["stack_frame_bytes"]
+                   and name in ("warp_frame", "warp_lookup")
+                   and "first_port" not in fn]
+        if stacked:
+            raise RuntimeError(f"{name}.cu kernels keep a stack frame: "
+                               f"{stacked}")
 
     # 3. scene
     t = time.perf_counter()
@@ -696,7 +833,7 @@ def main() -> int:
         ref = warp_kernel.warp_frame_reference(table, kscal, axis_world,
                                                WIDTH, HEIGHT, has_sh)
         torch.cuda.synchronize()
-        bitwise = float((out == ref).float().mean())
+        bitwise = equal_share(out, ref)
         share, max_err = rgb_agreement(out, ref)
         hit = float((table >= 0).float().mean())
         checks[name] = (bitwise, share, max_err)
@@ -705,9 +842,30 @@ def main() -> int:
             f"{tuple(table.shape)}, hit texels {hit:.4f}): bitwise "
             f"{bitwise:.6f}, within 1.5/255 {share:.6f}, max abs err "
             f"{max_err:.6f}")
-    if any(share <= MATCH_SHARE for _, share, _ in checks.values()):
-        raise RuntimeError(f"warp_frame disagrees with its plain version: "
-                           f"{checks}")
+    # every instantiation (sweep axis x shadow flag x vox's reciprocal
+    # exact or not) in both store forms, on the bench pose's table and
+    # scalars: the plain version computes the same function for any axis
+    # and flag, and the kernel may divide by the sphere's power-of-two vox
+    # (inv_vox 0) as well as multiply by its reciprocal
+    inst_checks = {}
+    table, kscal, _, _ = tables["bench"]
+    frame_lib = _build.load("warp_frame")
+    for (w, h), aw, sh, inv in itertools.product(
+            FRAME_SIZES, (0, 1, 2), (False, True), (None, 0.0)):
+        ks = warp_kernel._check(table, kscal, aw, w, h)
+        out = warp_kernel._launch(frame_lib, table, ks, aw, w, h, sh, inv)
+        ref = warp_kernel.warp_frame_reference(table, kscal, aw, w, h, sh)
+        torch.cuda.synchronize()
+        inst_checks[f"{w}x{h} axis {aw} shadow {int(sh)} "
+                    f"{'divide' if inv == 0.0 else 'reciprocal'}"] = (
+            equal_share(out, ref))
+    log("kernels", "warp_frame instantiations on the bench table, bitwise: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in inst_checks.items()))
+    bad = {k: v for k, v in inst_checks.items() if v != 1.0}
+    bad.update({k: b for k, (b, _, _) in checks.items() if b != 1.0})
+    if bad:
+        raise RuntimeError(f"warp_frame differs from its plain version: "
+                           f"bitwise shares {bad}")
 
     # 6. timing
     frame_ms = min(windows)
@@ -718,6 +876,7 @@ def main() -> int:
     _, wper = profiled(lambda: warp_kernel.warp_frame(
         table, kscal, axis_world, WIDTH, HEIGHT, has_sh), 50)
     warp_dev_ms = sum(v for k, v in wper.items() if "warp_frame_kernel" in k)
+    first_port = compare_first_port_frame(table, kscal, axis_world, has_sh)
     plain_ms = cuda_ms(lambda: warp_kernel.warp_frame_reference(
         table, kscal, axis_world, WIDTH, HEIGHT, has_sh), 20)
     cam = bench_camera()
@@ -736,6 +895,23 @@ def main() -> int:
     texels1 = distinct(iu1.long() * tw_ + iv1, ~inv1)
     bytes_moved = texels1 * 4 + 35 * 4 + WIDTH * HEIGHT * 4
     ops = WARP_OPS_PER_PIXEL * WIDTH * HEIGHT
+    # the pixels that run the shading: hits, less shadowed ones when
+    # shadows are on; the rest stop after the ray, plane and texel
+    val1 = torch.where(inv1, -1.0, table[iu1.long(), iv1.long()])
+    shaded = val1 >= 0
+    if has_sh:
+        shaded &= val1 < 2048
+    n_shaded = int(shaded.sum())
+    # of those, the ambient-coloured ones stop before the normal's length
+    # (a normal facing away from the light; a few lit ones round to the
+    # ambient word too, so this counts at most that many)
+    ambient = warp_kernel.warp_frame(table, kscal, axis_world, WIDTH, HEIGHT,
+                                     has_sh) == warp_kernel.ambient_word(
+        warp_kernel._check(table, kscal, axis_world, WIDTH, HEIGHT))
+    n_back = int((shaded & ambient).sum())
+    class_ops = (WARP_OPS_PER_PIXEL * (n_shaded - n_back)
+                 + WARP_OPS_BACK_FACING * n_back
+                 + WARP_OPS_EARLY_EXIT * (WIDTH * HEIGHT - n_shaded))
     bound_bytes_ms = bytes_moved / PEAK_BYTES_S * 1e3
     bound_ops_ms = ops / PEAK_F32_S * 1e3
     bound_ms, bound_by = bound(bytes_moved, ops)
@@ -751,12 +927,20 @@ def main() -> int:
         f"f32 ops {bound_ops_ms * 1e3:.2f} us); "
         f"sweep + pack {sweep_ms:.3f} ms; shadow volume {shadow_s:.3f} s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("timing", f"warp_frame pixels: {n_shaded} shaded, of which "
+        f"{n_back} ambient-coloured (back-facing, at most), "
+        f"{WIDTH * HEIGHT - n_shaded} stop at the texel; class-weighted "
+        f"operations {class_ops} ({class_ops / PEAK_F32_S * 1e6:.2f} us at "
+        f"the f32 rate; for reading only, the bound stays "
+        f"{WARP_OPS_PER_PIXEL} a pixel)")
 
     # 7. first hit: sweep_first_hit through the warp_lookup kernel
     wk = warp_kernel
     look_calls, restore = recorded(slab_sweep, "warp_lookup")
     wk.warp_lookup.launches = 0
     wk.warp_lookup_multi.launches = 0
+    for k in wk.LOOKUP_FORM_LAUNCHES:
+        wk.LOOKUP_FORM_LAUNCHES[k] = 0
     hit, t, _, _ = slab_sweep.sweep_first_hit(
         vol, origin, vox, cam.get_pos(), cam.get_view(), 45.0, aspect, WIDTH,
         HEIGHT, layouts=layouts, device=dev)
@@ -764,8 +948,10 @@ def main() -> int:
     restore()
     sfh_launches = {"warp_lookup": wk.warp_lookup.launches,
                     "warp_lookup_multi": wk.warp_lookup_multi.launches}
+    sfh_forms = dict(wk.LOOKUP_FORM_LAUNCHES)
     log("first hit", f"sweep_first_hit {WIDTH}x{HEIGHT}, bench pose: hit "
-        f"share {float(hit.float().mean()):.4f}; launches {sfh_launches}")
+        f"share {float(hit.float().mean()):.4f}; launches {sfh_launches}, "
+        f"warp_lookup by form {sfh_forms}")
     if sfh_launches["warp_lookup"] < 1:
         raise RuntimeError("sweep_first_hit did not launch warp_lookup")
     if not bool(torch.isfinite(t).all()):
@@ -925,6 +1111,28 @@ def main() -> int:
         exact_frame(exact_camera(th_, ph_))
         restore()
         multi_in[name] = calls[0]
+    # warp_lookup's forms on edge inputs made from the bench lin: each
+    # bitwise, each launching the form lookup_form chooses
+    lookup_forms = {}
+    for label, (ln, want) in lookup_edge_inputs(lin).items():
+        before = dict(wk.LOOKUP_FORM_LAUNCHES)
+        out = wk.warp_lookup(table, ln)
+        ref = wk.warp_lookup_reference(table, ln)
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in wk.LOOKUP_FORM_LAUNCHES.items()
+               if v != before[k]}
+        share = equal_share(out, ref)
+        lookup_forms[label] = got
+        log("lookups", f"warp_lookup {label} ({ln.numel()} px, storage "
+            f"offset {ln.storage_offset()}): launches by form {got}, bitwise "
+            f"{share:.6f}")
+        if got != {want: 1} or share != 1.0:
+            raise RuntimeError(f"warp_lookup on the {label} input: launches "
+                               f"by form {got} (want {want}), bitwise {share}")
+
+    kernel_names = {"warp_lookup": ("warp_lookup_vector_kernel",
+                                    "warp_lookup_general_kernel"),
+                    "warp_lookup_multi": ("warp_lookup_kernel",)}
     for kname, inputs in {"warp_lookup": {"bench": (table, lin)},
                           "warp_lookup_multi": multi_in}.items():
         kern = getattr(wk, kname)
@@ -934,7 +1142,7 @@ def main() -> int:
             out = kern(tab, ln)
             ref = plain(tab, ln)
             torch.cuda.synchronize()
-            res[pname] = (float((out == ref).float().mean()),
+            res[pname] = (equal_share(out, ref),
                           float((out - ref).abs().max()))
             log("lookups", f"{kname} {pname} (table "
                 f"{tuple(tab.shape)}, lin {tuple(ln.shape)}, miss share "
@@ -949,31 +1157,55 @@ def main() -> int:
         if planes > 1:
             flat = flat[None] + torch.arange(
                 planes, device=dev)[:, None, None] * (th * tw)
+        names = kernel_names[kname]
+
+        def dev_ms_of(fn, names=names):
+            _, per = profiled(fn, 50)
+            return sum(v for k, v in per.items()
+                       if any(n in k for n in names))
+
         k_ms = cuda_ms(lambda: kern(tab, ln), 200)
-        _, kper = profiled(lambda: kern(tab, ln), 50)
-        dev_ms = sum(v for k, v in kper.items() if "warp_lookup_kernel" in k)
+        dev_ms = dev_ms_of(lambda: kern(tab, ln))
+        lins = [(ln.clone(),) for _ in range(N_COLD)]
+        cold_ms = dev_ms_of(rotating(lambda x: kern(tab, x), lins))
         p_ms = cuda_ms(lambda: plain(tab, ln), 20)
         l_ms = cuda_ms(lambda: torch.take(tab, flat), 200)
         _, lper = profiled(lambda: torch.take(tab, flat), 50)
+        flats = [(flat.clone(),) for _ in range(N_COLD)]
+        _, lper_cold = profiled(
+            rotating(lambda f: torch.take(tab, f), flats), 50)
+        del flats
+        lib_ms = sum(lper.values()) or None
+        lib_cold = sum(lper_cold.values()) or None
         n_px = ln.numel()
         texels = distinct(flat[0] if planes > 1 else flat, ln >= 0)
         # lin, the output planes and each plane's distinct texels; a
         # shift, a mask, two clamps and an index product per pixel
         l_bound, l_by = bound(n_px * (4 + 4 * planes) + planes * texels * 4,
                               5 * n_px)
+        extra = {}
+        if kname == "warp_lookup":
+            extra = compare_lookup_bodies(tab, ln, lins, dev_ms_of)
+        del lins
         lookups[kname] = dict(
-            res=res, ms=dev_ms or k_ms, wrapper_ms=k_ms,
-            plain_ms=p_ms, library_ms=l_ms,
-            library_device_ms=sum(lper.values()) or None,
-            bound_ms=l_bound, bound_by=l_by)
+            res=res, ms=dev_ms or k_ms, ms_cold=cold_ms or None,
+            wrapper_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+            library_device_ms=lib_ms, library_device_ms_cold=lib_cold,
+            bound_ms=l_bound, bound_by=l_by,
+            bound_share_cold=l_bound / cold_ms if cold_ms else None,
+            take_factor=dev_ms / lib_ms if dev_ms and lib_ms else None,
+            take_factor_cold=(cold_ms / lib_cold if cold_ms and lib_cold
+                              else None), **extra)
         log("lookups", f"[{smi}] {kname} kernel {k_ms:.4f} ms (CUDA "
             f"events over wrapper calls; the kernel alone "
-            + (f"{dev_ms:.4f} ms under the profiler" if dev_ms else
-               f"not measured: profiler kernels {list(kper)[:3]}")
+            + (f"{dev_ms:.4f} ms warm, {cold_ms:.4f} ms cold under the "
+               f"profiler" if dev_ms else "not measured: the profiler saw "
+               "no kernel")
             + f"), plain "
             f"{p_ms:.4f} ms, torch.take {l_ms:.4f} ms (its kernels "
-            f"{sum(lper.values()):.4f} ms under the profiler), bound "
-            f"{lookups[kname]['bound_ms'] * 1e3:.2f} us ({planes} plane(s), "
+            f"{lib_ms or 0:.4f} ms warm, {lib_cold or 0:.4f} ms cold under "
+            f"the profiler), bound "
+            f"{l_bound * 1e3:.2f} us ({planes} plane(s), "
             f"{n_px} px, {texels} distinct texels of a {th}x{tw} table)")
 
     # 11. the warp experiments
@@ -989,15 +1221,25 @@ def main() -> int:
         "launches_per_frame": launches["warp_frame"] / n_main,
         "max_abs_err": max(e for _, _, e in checks.values()),
         "bitwise_share": {k: b for k, (b, _, _) in checks.items()},
-        "match_bar": "share of pixels within 1.5/255 on every channel > 0.995",
-        "match_share": {k: s for k, (_, s, _) in checks.items()},
+        "bitwise_share_instantiations": inst_checks,
+        "match_bar": "bitwise equal (share 1.0)",
+        "match_share_within_1.5_255": {k: s for k, (_, s, _)
+                                        in checks.items()},
         "match_ok": True,
         "ms": warp_dev_ms or warp_ms,
         "ms_source": MS_SOURCE[bool(warp_dev_ms)],
+        "first_port_ms": first_port,
         "wrapper_ms": warp_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_share": bound_ms / (warp_dev_ms or warp_ms),
+        "pixels_shaded": n_shaded,
+        "pixels_shaded_ambient": n_back,
+        "class_weighted_ops": class_ops,
+        "class_weighted_ops_ms": class_ops / PEAK_F32_S * 1e3,
+        "ptxas": kernel_resources(ptxas.get("warp_frame", {}),
+                                  "warp_frame_kernel"),
         "library_ms": None,
     }] + [{
         "name": kname,
@@ -1020,11 +1262,22 @@ def main() -> int:
         "bound_by": lk["bound_by"],
         "library_ms": lk["library_ms"],
         "library_device_ms": lk["library_device_ms"],
-    } for kname, lk, launches_of, n_frames in (
+        "library_device_ms_cold": lk["library_device_ms_cold"],
+        "ms_cold": lk["ms_cold"],
+        "bound_share_cold": lk["bound_share_cold"],
+        "take_factor": lk["take_factor"],
+        "take_factor_cold": lk["take_factor_cold"],
+        "launches_by_form": forms_of,
+        "ptxas": {k: v for n in kernel_names[kname] for k, v in
+                  kernel_resources(ptxas.get("warp_lookup", {}), n).items()},
+        **{k: lk[k] for k in ("first_port_ms", "first_port_ms_cold",
+                              "vector_px_ms") if k in lk},
+    } for kname, lk, launches_of, n_frames, forms_of in (
         ("warp_lookup", lookups["warp_lookup"],
-         sfh_launches["warp_lookup"], 1),
+         sfh_launches["warp_lookup"], 1,
+         {"bench": sfh_forms, **lookup_forms}),
         ("warp_lookup_multi", lookups["warp_lookup_multi"],
-         ex_launches["warp_lookup_multi"], n_exact))] + exp_rows,
+         ex_launches["warp_lookup_multi"], n_exact, None))] + exp_rows,
         "frame_ms": frame_ms, "mrays_per_s": mrays, "sweep_ms": sweep_ms,
         "sweep_first_hit_ms": sfh_ms, "exact_frame_ms": exact_ms,
         "exact_mrays_per_s": exact_mrays, "exact_stage_ms": stage_ms,

@@ -9,7 +9,7 @@
 // Both compute a gather. The TPU kernels reach it through one-hot MXU
 // contractions over 128-lane v-groups and a u-window, on bf16 hi/lo(/mid)
 // splits of the f32 table; all of that exists only for the MXU. Here each
-// thread decodes its pixel's lin once and reads one f32 texel per plane
+// thread decodes its pixels' lin and reads one f32 texel per plane
 // straight from memory, so every table of width <= 1024 is taken and no
 // camera is refused. A gather has no rounding: the result is bitwise the
 // plain PyTorch version's (warp_kernel.warp_lookup_reference).
@@ -19,12 +19,31 @@
 // table.
 //
 // Bound on an H100 SXM: the bytes. Per pixel the kernel reads 4 bytes of
-// lin and writes 4 bytes per plane; each table plane is read at most once
-// (4.2 MB at 1024x1024, L2-resident in the 50 MB L2). At 1920x1080 that is
-// (16.6 + 4.2) MB / 3.35 TB/s = 6.2 us for one plane and
-// (33.2 + 12.6) MB / 3.35 TB/s = 13.7 us for three. This first version is
-// simple and right: one thread per pixel, coalesced lin reads and output
-// writes, one texel load per plane.
+// lin and writes 4 bytes per plane; each table plane's distinct texels are
+// read once (a frame names a few tens of thousands of a 1024x1024 table,
+// so the table is served from L1 and L2). At 1920x1080, one plane, that is
+// about 16.7 MB, 5.0 us at 3.35 TB/s; three planes from one lin move
+// about 41 MB, 12.3 us.
+//
+// The single-plane entry is built for Hopper, because one thread per pixel
+// left each thread one dependent chain (a lin load, an address, a texel
+// load, a store) and the card waited on latency:
+//   - the vector form: a thread takes kLookupPx pixels in runs of four
+//     neighbours, reads each run's lin with one 16-byte load (run g of a
+//     thread at run (block base + g * kLookupThreads + thread), so a warp's
+//     loads and stores cover 512 contiguous bytes), issues every texel load
+//     before its first store (a miss loads nothing and writes -1), and
+//     writes each run with one 16-byte store; offsets are 32-bit (the
+//     wrapper takes TH * TW <= 2^31 and sends n >= 2^31 to the general
+//     form);
+//   - the general form takes what the vector form cannot: a lin field that
+//     is not 16-byte aligned (a contiguous view at a storage offset), a
+//     pixel count that is not a multiple of 4, or n >= 2^31; one pixel a
+//     thread, 64-bit offsets. The wrapper chooses the form
+//     (warp_kernel.lookup_form) and counts each form's launches.
+// The multi-plane entry keeps the first port's kernel, warp_lookup_kernel:
+// it reaches about half its bound and beats one torch.take of the same
+// gather.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,15 +79,97 @@ int launch(const float* tables, int planes, int th, int tw,
   return (int)cudaGetLastError();
 }
 
+constexpr int kLookupThreads = 256;
+
+// One plane, kPx pixels a thread in runs of four; n_runs = n / 4.
+template <int kPx>
+__global__ void __launch_bounds__(kLookupThreads)
+    warp_lookup_vector_kernel(const float* __restrict__ table, int th,
+                              int tw, const int32_t* __restrict__ lin,
+                              float* __restrict__ out, int n_runs) {
+  constexpr int kRuns = kPx / 4;
+  const int base = blockIdx.x * (kLookupThreads * kRuns) + threadIdx.x;
+  int l[kPx];
+#pragma unroll
+  for (int g = 0; g < kRuns; ++g) {
+    const int run = base + g * kLookupThreads;
+    const int4 t = run < n_runs
+                       ? __ldg(reinterpret_cast<const int4*>(lin) + run)
+                       : make_int4(-1, -1, -1, -1);
+    l[4 * g] = t.x;
+    l[4 * g + 1] = t.y;
+    l[4 * g + 2] = t.z;
+    l[4 * g + 3] = t.w;
+  }
+  float v[kPx];
+#pragma unroll
+  for (int i = 0; i < kPx; ++i) {
+    v[i] = -1.0f;
+    if (l[i] >= 0)
+      v[i] = __ldg(table + min(l[i] >> 10, th - 1) * tw +
+                   min(l[i] & 1023, tw - 1));
+  }
+#pragma unroll
+  for (int g = 0; g < kRuns; ++g) {
+    const int run = base + g * kLookupThreads;
+    if (run < n_runs)
+      reinterpret_cast<float4*>(out)[run] =
+          make_float4(v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]);
+  }
+}
+
+// One plane, one pixel a thread, any alignment and count.
+__global__ void __launch_bounds__(kLookupThreads)
+    warp_lookup_general_kernel(const float* __restrict__ table, int th,
+                               int tw, const int32_t* __restrict__ lin,
+                               float* __restrict__ out, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * kLookupThreads + threadIdx.x;
+  if (i >= n) return;
+  const int32_t l = __ldg(lin + i);
+  out[i] = l < 0 ? -1.0f
+                 : __ldg(table + (int64_t)min(l >> 10, th - 1) * tw +
+                         min(l & 1023, tw - 1));
+}
+
+template <int kPx>
+int launch_vector(const float* table, int th, int tw, const int32_t* lin,
+                  float* out, int64_t n, cudaStream_t stream) {
+  const int n_runs = (int)(n / 4);
+  const int per_block = kLookupThreads * (kPx / 4);
+  warp_lookup_vector_kernel<kPx>
+      <<<(n_runs + per_block - 1) / per_block, kLookupThreads, 0, stream>>>(
+          table, th, tw, lin, out, n_runs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// One plane: `table` f32[th, tw], `lin` i32[n], `out` f32[n]. Launches on
-// `stream` (a cudaStream_t as void*), does not synchronise, and returns
-// cudaGetLastError() (0 on success).
+// One plane: `table` f32[th, tw] with th * tw <= 2^31, `lin` i32[n],
+// `out` f32[n] (16-byte aligned). `form` 0 launches the general form; 4
+// or 8 the vector form at that many pixels a thread, which needs `lin`
+// 16-byte aligned, n % 4 == 0 and n < 2^31. Launches on `stream` (a
+// cudaStream_t as void*), does not synchronise, and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a form
+// the arguments do not allow.
 extern "C" int warp_lookup_launch(const float* table, int th, int tw,
                                   const int32_t* lin, float* out, int64_t n,
-                                  void* stream) {
-  return launch(table, 1, th, tw, lin, out, n, stream);
+                                  int form, void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (form != 0) {
+    if (n % 4 != 0 || n >= ((int64_t)1 << 31) ||
+        reinterpret_cast<uintptr_t>(lin) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    if (form == 4) return launch_vector<4>(table, th, tw, lin, out, n, s);
+    if (form == 8) return launch_vector<8>(table, th, tw, lin, out, n, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  warp_lookup_general_kernel<<<(unsigned)((n + kLookupThreads - 1) /
+                                          kLookupThreads),
+                               kLookupThreads, 0, s>>>(table, th, tw, lin,
+                                                       out, n);
+  return (int)cudaGetLastError();
 }
 
 // P planes: `tables` f32[planes, th, tw], `lin` i32[n], `out`

@@ -11,20 +11,26 @@ Lambert + ambient (ambient only under shadow) into one ``0xRRGGBB`` int32.
 
 On a CUDA tensor :func:`warp_frame` launches the hand-written kernel
 ``csrc/warp_frame.cu``; on a CPU tensor it runs the plain PyTorch version
-:func:`warp_frame_reference`. There is no other path.
+:func:`warp_frame_reference`. There is no other path. The kernel packs a
+shadowed hit, and a lit one facing away from the light, to
+:func:`ambient_word` without shading it, and divides by a power-of-two
+voxel size by multiplying with :func:`vox_reciprocal`: each exact against
+the plain version by construction.
 
 The module also holds the plain per-pixel lookups of the unfused paths,
 counterparts of the reference's ``warp_lookup`` and ``warp_lookup_multi``:
 :func:`warp_lookup` and :func:`warp_lookup_multi` launch
 ``csrc/warp_lookup.cu`` on CUDA tensors and run
 :func:`warp_lookup_reference` / :func:`warp_lookup_multi_reference` on CPU
-ones.
+ones. The single-plane kernel comes in two forms, chosen by
+:func:`lookup_form` and counted in :data:`LOOKUP_FORM_LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -65,6 +71,33 @@ def frame_scalars(scal) -> np.ndarray:
         scal[40:43],          # ambient
         R.reshape(-1),
     ]).astype(f32)
+
+
+def ambient_word(kscal) -> int:
+    """The packed 0xRRGGBB of a shadowed hit: each ambient channel of
+    ``kscal`` through the kernel's f32 ``fminf(fmaxf(c * 255 + 0.5, 0),
+    255)`` and truncation. The kernel writes it for every shadowed hit
+    when shadows are on."""
+    f32 = np.float32
+    ks = np.asarray(kscal, f32)
+    word = 0
+    for c in range(3):
+        q = np.fmin(np.fmax(ks[_KS_AMB + c] * f32(255.0) + f32(0.5), f32(0.0)),
+                    f32(255.0))
+        word = (word << 8) | int(q)
+    return word
+
+
+def vox_reciprocal(vox) -> float:
+    """The f32 reciprocal of ``vox`` where it is exact (its product with
+    ``vox``, exact in f64, is 1: ``vox`` is a power of two), else 0. Then
+    ``x * r`` and ``x / vox`` are the same real number rounded once, equal
+    for every f32 ``x``; the kernel multiplies by it."""
+    v = np.float32(vox)
+    with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+        r = np.float32(1.0) / v
+    exact = bool(np.isfinite(r)) and float(r) * float(v) == 1.0
+    return float(r) if exact else 0.0
 
 
 def _check(table: torch.Tensor, kscal, axis_world: int, width: int,
@@ -121,10 +154,43 @@ def warp_frame(table: torch.Tensor, kscal, axis_world: int, width: int,
 warp_frame.launches = 0   # kernel launches, counted where they happen
 
 
-def _launch(lib, table, ks, axis_world, width, height, has_shadow):
+def _launch(lib, table, ks, axis_world, width, height, has_shadow,
+            inv_vox=None):
     """Launch ``lib``'s warp_frame kernel on the current stream; ``ks`` is
-    the checked, rescaled scalar vector from :func:`_check`."""
+    the checked, rescaled scalar vector from :func:`_check`. ``inv_vox``
+    0.0 makes the kernel divide by vox even where :func:`vox_reciprocal`
+    (the default) finds the reciprocal exact."""
     fn = lib.warp_frame_launch
+    if fn.argtypes is None:
+        c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+        fn.argtypes = [c_ptr, c_int, c_int, c_ptr, c_ptr, c_int, c_int,
+                       c_float, c_float, c_int, c_int, ctypes.c_int32,
+                       c_float, c_int, c_ptr]
+        fn.restype = c_int
+    th, tw = table.shape
+    sx, sy = _pixel_steps(width, height)
+    ks = np.ascontiguousarray(ks, np.float32)
+    # the back-facing exit packs the ambient word, which base * +-0 + amb
+    # equals only for finite base colours
+    back_exit = bool(np.isfinite(ks[_KS_BASE:_KS_BASE + 3]).all())
+    with torch.cuda.device(table.device):
+        out = torch.empty((height, width), dtype=torch.int32,
+                          device=table.device)
+        rc = fn(table.data_ptr(), th, tw, ks.ctypes.data, out.data_ptr(),
+                width, height, float(sx), float(sy), axis_world,
+                int(bool(has_shadow)), ambient_word(ks),
+                vox_reciprocal(ks[_KS_VOX]) if inv_vox is None else inv_vox,
+                int(back_exit),
+                torch.cuda.current_stream(table.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"warp_frame launch failed: cudaError {rc}")
+    return out
+
+
+def _launch_first_port(table, ks, axis_world, width, height, has_shadow):
+    """The first port's kernel (one pixel a thread, runtime axes), kept in
+    the source to be timed beside :func:`_launch`'s; not counted."""
+    fn = _build.load("warp_frame").warp_frame_first_port_launch
     if fn.argtypes is None:
         c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
         fn.argtypes = [c_ptr, c_int, c_int, c_ptr, c_ptr, c_int, c_int,
@@ -289,27 +355,52 @@ def _lookup_reference(tables: torch.Tensor, lin: torch.Tensor):
     return torch.stack(out)
 
 
-def _lookup_launch(entry: str, tables: torch.Tensor, lin: torch.Tensor):
-    """Launch ``csrc/warp_lookup.cu``'s ``entry`` on the current stream."""
+# the single-plane kernel's forms and their codes in csrc/warp_lookup.cu:
+# the vector form at LOOKUP_VECTOR_PX pixels a thread, the general form at 0
+LOOKUP_VECTOR_PX = 4
+LOOKUP_FORM_LAUNCHES: Dict[str, int] = {"vector": 0, "general": 0}
+
+
+def lookup_form(lin: torch.Tensor) -> str:
+    """The form of the single-plane lookup kernel for ``lin``: "vector"
+    where its data is 16-byte aligned, its pixel count a multiple of 4 and
+    below 2^31 (the output is a fresh, aligned allocation); else
+    "general"."""
+    n = lin.numel()
+    aligned = lin.data_ptr() % 16 == 0
+    return "vector" if aligned and n % 4 == 0 and n < 2 ** 31 else "general"
+
+
+def _lookup_launch(tables: torch.Tensor, lin: torch.Tensor,
+                   form: Optional[int] = None):
+    """Launch ``csrc/warp_lookup.cu`` on the current stream: the multi-plane
+    entry where ``form`` is None, else the single-plane entry in the form
+    of that code."""
     lib = _build.load("warp_lookup")
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        c_int, c_i64, c_ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-        fn.argtypes = ([c_ptr, c_int, c_int, c_ptr, c_ptr, c_i64, c_ptr]
-                       if entry == "warp_lookup_launch" else
-                       [c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_i64,
-                        c_ptr])
-        fn.restype = c_int
+    c_int, c_i64, c_ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+    if form is None:
+        fn = lib.warp_lookup_multi_launch
+        if fn.argtypes is None:
+            fn.argtypes = [c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_i64,
+                           c_ptr]
+            fn.restype = c_int
+    else:
+        fn = lib.warp_lookup_launch
+        if fn.argtypes is None:
+            fn.argtypes = [c_ptr, c_int, c_int, c_ptr, c_ptr, c_i64, c_int,
+                           c_ptr]
+            fn.restype = c_int
     p, th, tw = tables.shape
     with torch.cuda.device(tables.device):
         out = torch.empty((p,) + tuple(lin.shape), dtype=torch.float32,
                           device=tables.device)
         stream = torch.cuda.current_stream(tables.device).cuda_stream
-        args = (th, tw, lin.data_ptr(), out.data_ptr(), lin.numel(), stream)
-        rc = (fn(tables.data_ptr(), *args) if entry == "warp_lookup_launch"
-              else fn(tables.data_ptr(), p, *args))
+        ptrs = (tables.data_ptr(), lin.data_ptr(), out.data_ptr())
+        rc = (fn(ptrs[0], p, th, tw, *ptrs[1:], lin.numel(), stream)
+              if form is None else
+              fn(ptrs[0], th, tw, *ptrs[1:], lin.numel(), form, stream))
     if rc != 0:
-        raise RuntimeError(f"{entry} failed: cudaError {rc}")
+        raise RuntimeError(f"warp_lookup launch failed: cudaError {rc}")
     return out
 
 
@@ -319,15 +410,21 @@ def warp_lookup(table: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
     ``table`` f32[TH, TW] with TW <= 1024; ``lin`` int32 of any shape,
     packed ``(iu << 10) | iv``; the result has ``lin``'s shape. A CUDA
     ``table`` launches the kernel of ``csrc/warp_lookup.cu`` (the port of
-    the reference's ``_warp_onehot_kernel``) on the current stream; a CPU
-    one runs :func:`warp_lookup_reference`.
+    the reference's ``_warp_onehot_kernel``) on the current stream, in the
+    form :func:`lookup_form` chooses; a CPU one runs
+    :func:`warp_lookup_reference`.
     """
     tables = _one_plane(table)
     _check_lookup(tables, lin)
     if tables.device.type == "cpu":
         return _lookup_reference(tables, lin)[0]
-    out = _lookup_launch("warp_lookup_launch", tables, lin)[0]
+    if lin.numel() == 0:
+        return torch.empty(lin.shape, dtype=torch.float32, device=lin.device)
+    form = lookup_form(lin)
+    out = _lookup_launch(tables, lin,
+                         LOOKUP_VECTOR_PX if form == "vector" else 0)[0]
     warp_lookup.launches += 1
+    LOOKUP_FORM_LAUNCHES[form] += 1
     return out
 
 
@@ -355,7 +452,7 @@ def warp_lookup_multi(tables: torch.Tensor,
     _check_lookup(tables, lin)
     if tables.device.type == "cpu":
         return _lookup_reference(tables, lin)
-    out = _lookup_launch("warp_lookup_multi_launch", tables, lin)
+    out = _lookup_launch(tables, lin)
     warp_lookup_multi.launches += 1
     return out
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions:
-``warp_frame`` (csrc/warp_frame.cu), ``warp_lookup`` /
-``warp_lookup_multi`` (csrc/warp_lookup.cu), and the warp experiments'
-four kernels (csrc/exp_warp.cu), in every form, through every wrapper of
+``warp_frame`` (csrc/warp_frame.cu) in every instantiation and store
+form, ``warp_lookup`` in both forms and ``warp_lookup_multi``
+(csrc/warp_lookup.cu), and the warp experiments' four kernels
+(csrc/exp_warp.cu), in every form, through every wrapper of
 ``ray_tracing_octrees_tpu_torch/tools``.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (a
@@ -71,6 +72,38 @@ def test_warp_frame_kernel_matches_plain(scene, name):
     ref = warp_kernel.warp_frame_reference(table, ks, aw, W, H, has_sh)
     torch.cuda.synchronize()
     assert out.is_cuda and out.dtype == torch.int32 and out.shape == (H, W)
+    assert torch.equal(out, ref)
+
+
+@pytest.fixture(scope="module")
+def exterior_table(scene):
+    return _table(scene, "exterior")
+
+
+@pytest.mark.parametrize("vox", ["power of two", "other"])
+@pytest.mark.parametrize("size", [(W, H), (638, 359), (637, 361)])
+@pytest.mark.parametrize("has_shadow", [False, True])
+@pytest.mark.parametrize("axis_world", [0, 1, 2])
+def test_warp_frame_instantiations_match_plain(exterior_table, axis_world,
+                                               has_shadow, size, vox):
+    """Every compile-time instantiation (sweep axis x shadow flag x vox's
+    reciprocal exact or not) in both store forms (widths that are a
+    multiple of 4, and not), bitwise, on a real table with the axis, the
+    flag and vox forced: the plain version computes the same function for
+    any of them."""
+    table, ks, _, _ = exterior_table
+    ks = ks.copy()
+    if vox == "other":
+        ks[10] *= np.float32(1.1)
+    assert (warp_kernel.vox_reciprocal(ks[10]) != 0) == (vox != "other")
+    w, h = size
+    before = warp_kernel.warp_frame.launches
+    out = warp_kernel.warp_frame(table, ks, axis_world, w, h, has_shadow)
+    assert warp_kernel.warp_frame.launches == before + 1
+    ref = warp_kernel.warp_frame_reference(table, ks, axis_world, w, h,
+                                           has_shadow)
+    torch.cuda.synchronize()
+    assert out.shape == (h, w)
     assert torch.equal(out, ref)
 
 
@@ -187,6 +220,51 @@ def test_lookup_kernels_edge_cases(scene, which):
         assert bool((one == -1).all()) and bool((multi[1:] == 0).all())
     if which == "no_miss":
         assert bool((one >= 0).all())
+
+
+def _lookup_field(which):
+    """(table, lin, the form warp_lookup should launch) for the form
+    tests: a lin view at a 4-byte storage offset, a pixel count that is
+    not a multiple of 4, every pixel a miss, none."""
+    gen = torch.Generator().manual_seed(5)
+    th, tw = 512, 1024
+    table = torch.rand((th, tw), generator=gen).cuda()
+    n = H * W
+    iu = torch.randint(0, th, (n + 1,), generator=gen, dtype=torch.int32)
+    iv = torch.randint(0, tw, (n + 1,), generator=gen, dtype=torch.int32)
+    lin = ((iu << 10) | iv).cuda()
+    lin[::5] = -1
+    if which == "offset":
+        return table, lin[1:].view(H, W), "general"
+    if which == "ragged":
+        return table, lin[:n - 3].clone(), "general"
+    if which == "all_miss":
+        return table, torch.full((H, W), -1, dtype=torch.int32,
+                                 device="cuda"), "vector"
+    return table, lin[:n].clamp(min=0).view(H, W), "vector"
+
+
+@pytest.mark.parametrize("which", ["offset", "ragged", "all_miss", "no_miss"])
+def test_warp_lookup_forms_match_plain(scene, which):
+    """warp_lookup in the form lookup_form chooses, counted in
+    LOOKUP_FORM_LAUNCHES, bitwise equal to its plain version."""
+    table, lin, want = _lookup_field(which)
+    assert warp_kernel.lookup_form(lin) == want
+    before = dict(warp_kernel.LOOKUP_FORM_LAUNCHES)
+    n_before = warp_kernel.warp_lookup.launches
+    out = warp_kernel.warp_lookup(table, lin)
+    got = {k: v - before[k]
+           for k, v in warp_kernel.LOOKUP_FORM_LAUNCHES.items()
+           if v != before[k]}
+    assert got == {want: 1}
+    assert warp_kernel.warp_lookup.launches == n_before + 1
+    ref = warp_kernel.warp_lookup_reference(table, lin)
+    torch.cuda.synchronize()
+    assert out.shape == lin.shape and torch.equal(out, ref)
+    if which == "all_miss":
+        assert bool((out == -1).all())
+    if which == "no_miss":
+        assert bool((out >= 0).all())
 
 
 # --------------------------------------------------------------------------

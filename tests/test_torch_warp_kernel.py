@@ -93,6 +93,50 @@ def test_reference_matches_pallas_kernel(scene, name, with_shadow):
     assert (out_t.numpy() != 0).any()
 
 
+@pytest.mark.parametrize("with_shadow", [True, False])
+@pytest.mark.parametrize("name", list(POSES))
+def test_early_exits_exact_on_pallas_kernel(scene, name, with_shadow):
+    """The CUDA kernel stops after the texel for a miss (packs 0) and, with
+    shadows on, for a shadowed hit (packs ``ambient_word``). Both hold on
+    the JAX kernel's own output, and on the plain version's: they are
+    selects, whatever the shading would give."""
+    packed, scal, aw = _frame_inputs(scene, name, with_shadow)
+    kj = jw.frame_scalars_kernel(jnp.asarray(scal), aw)
+    out_j = np.asarray(jw.warp_frame(jw.split_hi_lo(jnp.asarray(packed)), kj,
+                                     32, 128, 256, aw, W, H,
+                                     with_shadow))[:H, :W]
+    table = torch.from_numpy(packed)
+    ks = tw.frame_scalars(scal)
+    _, _, _, invalid, iu, iv = tw._texels(
+        INTER, INTER, tw._check(table, ks, aw, W, H), aw, W, H, "cpu")
+    val = torch.where(invalid, -1.0, table[iu.long(), iv.long()]).numpy()
+    miss = val < 0
+    shadowed = (val >= 2048) if with_shadow else np.zeros_like(miss)
+    out_t = tw.warp_frame_reference(table, ks, aw, W, H, with_shadow).numpy()
+    word = tw.ambient_word(ks)
+    assert word == (26 << 16) | (26 << 8) | 26     # ambient 0.1
+    for out in (out_j, out_t):
+        assert (out[miss] == 0).all()
+        assert (out[shadowed] == word).all()
+    if name == "interior":    # inside the sphere: every ray hits a shell
+        assert not miss.any() and (shadowed.all() or not with_shadow)
+    else:
+        assert miss.any() and (~miss & ~shadowed).any()
+        assert shadowed.any() or not with_shadow
+
+
+@pytest.mark.parametrize("ambient", [(0.1, 0.1, 0.1), (0.0, 0.5, 1.0),
+                                     (-0.2, 1.3, 0.2549019753932953)])
+def test_ambient_word_matches_plain_rounding(ambient):
+    """The host's packed ambient word equals the plain version's f32
+    ``clamp(c * 255 + 0.5, 0, 255)`` and truncation, clamps included."""
+    ks = np.zeros(35, np.float32)
+    ks[23:26] = ambient
+    col = torch.tensor(ks[23:26])
+    q = torch.clamp(col * 255.0 + 0.5, 0.0, 255.0).to(torch.int32).tolist()
+    assert tw.ambient_word(ks) == (q[0] << 16) | (q[1] << 8) | q[2]
+
+
 def test_cpu_wrapper_runs_reference_without_counting(scene):
     packed, scal, aw = _frame_inputs(scene, "exterior")
     table = torch.from_numpy(packed)

@@ -135,6 +135,31 @@ def test_cpu_wrappers_run_plain_version_uncounted():
     assert (tw.warp_lookup.launches, tw.warp_lookup_multi.launches) == before
 
 
+def _lin_field(kind):
+    """An int32 lin field for the form chooser: aligned, a view at a 4-byte
+    storage offset, a pixel count that is not a multiple of 4, or 2-D."""
+    base = torch.arange(4097, dtype=torch.int32)
+    if kind == "aligned":
+        return base[:4096].clone()
+    if kind == "offset":
+        return base[1:4097]
+    if kind == "ragged":
+        return base[:4095].clone()
+    return base[:4096].clone().reshape(64, 64)
+
+
+@pytest.mark.parametrize("kind,want", [("aligned", "vector"),
+                                       ("offset", "general"),
+                                       ("ragged", "general"),
+                                       ("2-d", "vector")])
+def test_lookup_form_choice(kind, want):
+    """The single-plane kernel's vector form takes 16-byte aligned lin
+    fields of a multiple of 4 pixels; the general form the rest."""
+    lin = _lin_field(kind)
+    assert lin.is_contiguous()
+    assert tw.lookup_form(lin) == want
+
+
 def test_out_of_table_indices_clamp():
     """Indices past the table clamp to its edge (the kernel never reads
     outside the table)."""
