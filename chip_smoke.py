@@ -18,12 +18,13 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               the CPU (plain versions)
   5. kernels  warp_frame against its plain PyTorch version on the card,
               bitwise, at the main path's shapes for three poses, and in
-              every instantiation (sweep axis x shadow flag, forced on the
-              bench pose's table) at 1920x1080 and at a width that is not
-              a multiple of 4
+              every instantiation (sweep axis x shadow flag x multiplying
+              by vox's exact reciprocal or dividing, forced on the bench
+              pose's table) at 1920x1080 and at a width that is not a
+              multiple of 4
   6. timing   frame ms, Mrays/s, and warp_frame's time beside its bound and
-              the first port's kernel (timed in turns); the pixels that
-              shade, and the class-weighted operation count
+              beside its instantiation that divides by vox (in turns); the
+              pixels that shade, and the class-weighted operation count
   7. first hit  sweep_first_hit at 1920x1080 and the bench pose, its
               launch counts read around the run
   8. exact    1920x1080 frames of render_fast_exact_frame with the shadow
@@ -221,38 +222,31 @@ def kernel_resources(report: dict, name: str) -> dict:
     return {fn: r for fn, r in report.items() if name in fn}
 
 
-def compare_first_port_frame(table, kscal, axis_world, has_sh):
-    """Device ms of the first port's warp_frame kernel and of the new one
-    on the same inputs, timed in turns (first, new, new, first) under the
-    profiler, 50 calls each; the outputs must be equal."""
+def time_vox_division(table, kscal, axis_world, has_sh):
+    """Device ms of warp_frame as shipped (multiplying by vox's exact
+    reciprocal) and of its instantiation that divides by vox, on the same
+    inputs, timed in turns (reciprocal, divide, divide, reciprocal) under
+    the profiler, 50 calls each; the outputs must be equal."""
     import torch
 
     from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
 
     ks = wk._check(table, kscal, axis_world, WIDTH, HEIGHT)
     lib = wk._build.load("warp_frame")
-    runs = {"first port": (lambda: wk._launch_first_port(
-                table, ks, axis_world, WIDTH, HEIGHT, has_sh),
-                "first_port_frame_kernel"),
-            "new": (lambda: wk._launch(
-                lib, table, ks, axis_world, WIDTH, HEIGHT, has_sh),
-                "warp_frame_kernel"),
-            "new, dividing by vox": (lambda: wk._launch(
-                lib, table, ks, axis_world, WIDTH, HEIGHT, has_sh, 0.0),
-                "warp_frame_kernel")}
-    outs = [fn() for fn, _ in runs.values()]
+    runs = {"reciprocal": None, "divide": 0.0}
+    outs = [wk._launch(lib, table, ks, axis_world, WIDTH, HEIGHT, has_sh, inv)
+            for inv in runs.values()]
     torch.cuda.synchronize()
-    if not all(torch.equal(outs[0], o) for o in outs[1:]):
-        raise RuntimeError("the new warp_frame kernel differs from the "
-                           "first port's")
+    if not torch.equal(*outs):
+        raise RuntimeError("warp_frame differs when it divides by vox")
     times = {k: [] for k in runs}
-    for k in ("first port", "new", "new, dividing by vox",
-              "new, dividing by vox", "new", "first port"):
-        fn, name = runs[k]
-        _, per = profiled(fn, 50)
-        times[k].append(sum(v for n, v in per.items() if name in n))
-    log("timing", "warp_frame device ms in turns (first port, new, new "
-        "dividing, new dividing, new, first port): " + ", ".join(
+    for k in ("reciprocal", "divide", "divide", "reciprocal"):
+        _, per = profiled(lambda: wk._launch(
+            lib, table, ks, axis_world, WIDTH, HEIGHT, has_sh, runs[k]), 50)
+        times[k].append(sum(v for n, v in per.items()
+                            if "warp_frame_kernel" in n))
+    log("timing", "warp_frame device ms in turns, multiplying by vox's "
+        "reciprocal / dividing by vox: " + ", ".join(
             f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in times.items()))
     return {k: min(v) for k, v in times.items()}
 
@@ -273,30 +267,17 @@ def lookup_edge_inputs(lin):
 
 
 def compare_lookup_bodies(tab, ln, lins, dev_ms_of):
-    """Device ms, warm and cold, of the single-plane lookup's bodies in
-    turns: the first port's (the multi-plane kernel at one plane) against
-    the vector form, and the vector form at 4 and at 8 pixels a thread.
-    Returns the first port's times."""
+    """Device ms, warm and cold, of the single-plane lookup's first-port
+    body (the multi-plane kernel at one plane) and of its vector form, in
+    turns (first port, vector, vector, first port)."""
     from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
 
-    first = ("warp_lookup_kernel",)
-    vector = ("warp_lookup_vector_kernel",)
-
-    def vec(px):
-        def run(x):
-            wk.LOOKUP_VECTOR_PX = px
-            try:
-                return wk.warp_lookup(tab, x)
-            finally:
-                wk.LOOKUP_VECTOR_PX = 4
-        return run
-
     bodies = {"first port": (lambda x: wk.warp_lookup_multi(tab[None], x),
-                             first),
-              "vector 4": (vec(4), vector), "vector 8": (vec(8), vector)}
+                             ("warp_lookup_kernel",)),
+              "vector": (lambda x: wk.warp_lookup(tab, x),
+                         ("warp_lookup_vector_kernel",))}
     times = {}
-    for k in ("first port", "vector 4", "vector 8", "vector 8", "vector 4",
-              "first port"):
+    for k in ("first port", "vector", "vector", "first port"):
         fn, names = bodies[k]
         warm = dev_ms_of(lambda: fn(ln), names)
         cold = dev_ms_of(rotating(fn, lins), names)
@@ -308,8 +289,8 @@ def compare_lookup_bodies(tab, ln, lins, dev_ms_of):
             for k, v in times.items()}
     return {"first_port_ms": best["first port"][0],
             "first_port_ms_cold": best["first port"][1],
-            "vector_px_ms": {k: v for k, v in best.items()
-                             if k.startswith("vector")}}
+            "vector_in_turns_ms": best["vector"][0],
+            "vector_in_turns_ms_cold": best["vector"][1]}
 
 
 def frame_classes(img):
@@ -722,8 +703,7 @@ def main() -> int:
         if spilled:
             raise RuntimeError(f"{name}.cu kernels spill: {spilled}")
         stacked = [fn for fn, r in report.items() if r["stack_frame_bytes"]
-                   and name in ("warp_frame", "warp_lookup")
-                   and "first_port" not in fn]
+                   and name in ("warp_frame", "warp_lookup")]
         if stacked:
             raise RuntimeError(f"{name}.cu kernels keep a stack frame: "
                                f"{stacked}")
@@ -876,7 +856,7 @@ def main() -> int:
     _, wper = profiled(lambda: warp_kernel.warp_frame(
         table, kscal, axis_world, WIDTH, HEIGHT, has_sh), 50)
     warp_dev_ms = sum(v for k, v in wper.items() if "warp_frame_kernel" in k)
-    first_port = compare_first_port_frame(table, kscal, axis_world, has_sh)
+    vox_ms = time_vox_division(table, kscal, axis_world, has_sh)
     plain_ms = cuda_ms(lambda: warp_kernel.warp_frame_reference(
         table, kscal, axis_world, WIDTH, HEIGHT, has_sh), 20)
     cam = bench_camera()
@@ -1228,7 +1208,7 @@ def main() -> int:
         "match_ok": True,
         "ms": warp_dev_ms or warp_ms,
         "ms_source": MS_SOURCE[bool(warp_dev_ms)],
-        "first_port_ms": first_port,
+        "ms_by_vox_division": vox_ms,
         "wrapper_ms": warp_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -1271,7 +1251,8 @@ def main() -> int:
         "ptxas": {k: v for n in kernel_names[kname] for k, v in
                   kernel_resources(ptxas.get("warp_lookup", {}), n).items()},
         **{k: lk[k] for k in ("first_port_ms", "first_port_ms_cold",
-                              "vector_px_ms") if k in lk},
+                              "vector_in_turns_ms", "vector_in_turns_ms_cold")
+           if k in lk},
     } for kname, lk, launches_of, n_frames, forms_of in (
         ("warp_lookup", lookups["warp_lookup"],
          sfh_launches["warp_lookup"], 1,

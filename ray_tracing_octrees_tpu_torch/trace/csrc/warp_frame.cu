@@ -23,7 +23,8 @@
 // pixel issues, every cut exact by construction:
 //   - compile-time sweep axis and shadow flag: the ray's sweep, A and B
 //     components are named registers, never a runtime index into an array
-//     (which kept a 16-byte stack frame);
+//     (the first port's kernel indexed one and kept a 16-byte stack
+//     frame);
 //   - a miss (no texel, a -1 texel, or behind the reference plane) packs
 //     to 0, and with shadows on a shadowed hit to the per-frame ambient
 //     word, computed once on the host with the same f32 rounding
@@ -209,78 +210,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The kernel as first ported: one pixel per thread, runtime axes and
-// shadow flag, every pixel shaded. Kept to time beside the kernel above.
-__global__ void first_port_frame_kernel(const float* __restrict__ table,
-                                        int th, int tw, Scalars ks,
-                                        int32_t* __restrict__ out, int width,
-                                        int height, float sx, float sy,
-                                        int s_idx, int a_idx, int b_idx,
-                                        int has_shadow) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
-  const float* k = ks.v;
-
-  const float nx = (((float)x + 0.5f) * sx - 1.0f) * k[KS_AXF];
-  const float ny = (1.0f - ((float)y + 0.5f) * sy) * k[KS_TANH];
-  float d3[3];
-  for (int r = 0; r < 3; ++r)
-    d3[r] = nx * k[KS_R + 3 * r] + ny * k[KS_R + 3 * r + 1] - k[KS_R + 3 * r + 2];
-  const float d_s = d3[s_idx], d_a = d3[a_idx], d_b = d3[b_idx];
-
-  const float vox = k[KS_VOX];
-  const float eye_s = k[KS_EYE_S];
-  float denom = d_s / vox;
-  if (fabsf(denom) < 1e-12f) denom = 1e-12f;
-  const float t_rp = (k[KS_Z0] - eye_s) / denom;
-  const float a_ref = k[KS_EYE_A] + d_a / vox * t_rp;
-  const float b_ref = k[KS_EYE_B] + d_b / vox * t_rp;
-  const bool behind = t_rp <= 0.0f;
-  const float uu = (a_ref - k[KS_AMIN]) * k[KS_SCA];
-  const float vv = (b_ref - k[KS_BMIN]) * k[KS_SCB];
-  const bool oow = (uu < 0.0f) | (uu >= (float)th) | (vv < 0.0f) |
-                   (vv >= (float)tw);
-
-  float val = -1.0f;
-  if (!(behind | oow)) {
-    const int iu = min(max((int)uu, 0), th - 1);
-    const int iv = min(max((int)vv, 0), tw - 1);
-    val = __ldg(table + (size_t)iu * tw + iv);
-  }
-
-  const bool hit = (val >= 0.0f) & !behind;
-  const bool sh_bit = val >= 2048.0f;
-  const float z_f = fmaxf(val - (sh_bit ? 2048.0f : 0.0f), 0.0f);
-  const float d_len = sqrtf(d3[0] * d3[0] + d3[1] * d3[1] + d3[2] * d3[2]);
-  float t_w = (z_f - eye_s) * vox * d_len / d_s;
-  t_w = hit ? t_w : 0.0f;
-
-  float ndl = 0.0f, nrm2 = 0.0f;
-  const float nudge = 0.25f * vox;
-  for (int c = 0; c < 3; ++c) {
-    const float dir_c = d3[c] / d_len;
-    const float p_c = k[KS_CAM + c] + dir_c * t_w;
-    const float pin_c = p_c + dir_c * nudge;
-    const float org_c = k[KS_ORG + c];
-    const float cen_c = org_c + (floorf((pin_c - org_c) / vox) + 0.5f) * vox;
-    const float n_c = p_c - cen_c;
-    nrm2 = nrm2 + n_c * n_c;
-    ndl = ndl + n_c * k[KS_L + c];
-  }
-  const float ndotl = fmaxf(0.0f, -ndl / fmaxf(sqrtf(nrm2), 1e-12f));
-
-  int32_t packed = 0;
-  for (int c = 0; c < 3; ++c) {
-    float col = k[KS_BASE + c] * ndotl + k[KS_AMB + c];
-    if (has_shadow && sh_bit) col = k[KS_AMB + c];
-    if (!hit) col = 0.0f;
-    const float q = fminf(fmaxf(col * 255.0f + 0.5f, 0.0f), 255.0f);
-    packed = (packed << 8) | (int32_t)q;
-  }
-  out[(size_t)y * width + x] = packed;
-}
-
 using FrameKernel = void (*)(const float*, int, int, Scalars, int32_t*, int,
                              int, float, float, int32_t, float, int);
 
@@ -325,20 +254,5 @@ extern "C" int warp_frame_launch(const float* table, int th, int tw,
   kern<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       table, th, tw, to_scalars(kscal), out, width, height, sx, sy, amb_word,
       inv_vox, back_exit);
-  return (int)cudaGetLastError();
-}
-
-// The first port's kernel, same contract but for the axes: `s_idx`,
-// `a_idx`, `b_idx` are the world-axis indices of the sweep, A and B.
-extern "C" int warp_frame_first_port_launch(
-    const float* table, int th, int tw, const float* kscal, int32_t* out,
-    int width, int height, float sx, float sy, int s_idx, int a_idx,
-    int b_idx, int has_shadow, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y);
-  first_port_frame_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      table, th, tw, to_scalars(kscal), out, width, height, sx, sy, s_idx,
-      a_idx, b_idx, has_shadow);
   return (int)cudaGetLastError();
 }

@@ -28,14 +28,14 @@
 // The single-plane entry is built for Hopper, because one thread per pixel
 // left each thread one dependent chain (a lin load, an address, a texel
 // load, a store) and the card waited on latency:
-//   - the vector form: a thread takes kLookupPx pixels in runs of four
-//     neighbours, reads each run's lin with one 16-byte load (run g of a
-//     thread at run (block base + g * kLookupThreads + thread), so a warp's
-//     loads and stores cover 512 contiguous bytes), issues every texel load
-//     before its first store (a miss loads nothing and writes -1), and
-//     writes each run with one 16-byte store; offsets are 32-bit (the
-//     wrapper takes TH * TW <= 2^31 and sends n >= 2^31 to the general
-//     form);
+//   - the vector form: a thread takes a run of four neighbouring pixels,
+//     reads their lin with one 16-byte load (a warp's loads and stores
+//     cover 512 contiguous bytes), issues all four texel loads before its
+//     store (a miss loads nothing and writes -1), and writes the run with
+//     one 16-byte store; offsets are 32-bit (the wrapper takes
+//     TH * TW <= 2^31 and sends n >= 2^31 to the general form). Eight
+//     pixels a thread (two runs) measured 4.7 us against four's 4.3 at
+//     1080p (PERF.md), so one run it is;
 //   - the general form takes what the vector form cannot: a lin field that
 //     is not 16-byte aligned (a contiguous view at a storage offset), a
 //     pixel count that is not a multiple of 4, or n >= 2^31; one pixel a
@@ -81,41 +81,24 @@ int launch(const float* tables, int planes, int th, int tw,
 
 constexpr int kLookupThreads = 256;
 
-// One plane, kPx pixels a thread in runs of four; n_runs = n / 4.
-template <int kPx>
+// One plane, a run of four pixels a thread; n_runs = n / 4.
 __global__ void __launch_bounds__(kLookupThreads)
     warp_lookup_vector_kernel(const float* __restrict__ table, int th,
                               int tw, const int32_t* __restrict__ lin,
                               float* __restrict__ out, int n_runs) {
-  constexpr int kRuns = kPx / 4;
-  const int base = blockIdx.x * (kLookupThreads * kRuns) + threadIdx.x;
-  int l[kPx];
+  const int run = blockIdx.x * kLookupThreads + threadIdx.x;
+  if (run >= n_runs) return;
+  const int4 l = __ldg(reinterpret_cast<const int4*>(lin) + run);
+  const int li[4] = {l.x, l.y, l.z, l.w};
+  float v[4];
 #pragma unroll
-  for (int g = 0; g < kRuns; ++g) {
-    const int run = base + g * kLookupThreads;
-    const int4 t = run < n_runs
-                       ? __ldg(reinterpret_cast<const int4*>(lin) + run)
-                       : make_int4(-1, -1, -1, -1);
-    l[4 * g] = t.x;
-    l[4 * g + 1] = t.y;
-    l[4 * g + 2] = t.z;
-    l[4 * g + 3] = t.w;
-  }
-  float v[kPx];
-#pragma unroll
-  for (int i = 0; i < kPx; ++i) {
+  for (int i = 0; i < 4; ++i) {
     v[i] = -1.0f;
-    if (l[i] >= 0)
-      v[i] = __ldg(table + min(l[i] >> 10, th - 1) * tw +
-                   min(l[i] & 1023, tw - 1));
+    if (li[i] >= 0)
+      v[i] = __ldg(table + min(li[i] >> 10, th - 1) * tw +
+                   min(li[i] & 1023, tw - 1));
   }
-#pragma unroll
-  for (int g = 0; g < kRuns; ++g) {
-    const int run = base + g * kLookupThreads;
-    if (run < n_runs)
-      reinterpret_cast<float4*>(out)[run] =
-          make_float4(v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]);
-  }
+  reinterpret_cast<float4*>(out)[run] = make_float4(v[0], v[1], v[2], v[3]);
 }
 
 // One plane, one pixel a thread, any alignment and count.
@@ -131,40 +114,32 @@ __global__ void __launch_bounds__(kLookupThreads)
                          min(l & 1023, tw - 1));
 }
 
-template <int kPx>
-int launch_vector(const float* table, int th, int tw, const int32_t* lin,
-                  float* out, int64_t n, cudaStream_t stream) {
-  const int n_runs = (int)(n / 4);
-  const int per_block = kLookupThreads * (kPx / 4);
-  warp_lookup_vector_kernel<kPx>
-      <<<(n_runs + per_block - 1) / per_block, kLookupThreads, 0, stream>>>(
-          table, th, tw, lin, out, n_runs);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // One plane: `table` f32[th, tw] with th * tw <= 2^31, `lin` i32[n],
-// `out` f32[n] (16-byte aligned). `form` 0 launches the general form; 4
-// or 8 the vector form at that many pixels a thread, which needs `lin`
-// 16-byte aligned, n % 4 == 0 and n < 2^31. Launches on `stream` (a
-// cudaStream_t as void*), does not synchronise, and returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a form
-// the arguments do not allow.
+// `out` f32[n] (16-byte aligned). `form` 0 launches the general form, 1
+// the vector form, which needs `lin` 16-byte aligned, n % 4 == 0 and
+// n < 2^31. Launches on `stream` (a cudaStream_t as void*), does not
+// synchronise, and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a form the arguments do not allow.
 extern "C" int warp_lookup_launch(const float* table, int th, int tw,
                                   const int32_t* lin, float* out, int64_t n,
                                   int form, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (form != 0) {
+  if (form == 1) {
     if (n % 4 != 0 || n >= ((int64_t)1 << 31) ||
         reinterpret_cast<uintptr_t>(lin) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(out) % 16 != 0)
       return (int)cudaErrorInvalidValue;
-    if (form == 4) return launch_vector<4>(table, th, tw, lin, out, n, s);
-    if (form == 8) return launch_vector<8>(table, th, tw, lin, out, n, s);
-    return (int)cudaErrorInvalidValue;
+    const int n_runs = (int)(n / 4);
+    warp_lookup_vector_kernel<<<(n_runs + kLookupThreads - 1) /
+                                    kLookupThreads,
+                                kLookupThreads, 0, s>>>(table, th, tw, lin,
+                                                        out, n_runs);
+    return (int)cudaGetLastError();
   }
+  if (form != 0) return (int)cudaErrorInvalidValue;
   warp_lookup_general_kernel<<<(unsigned)((n + kLookupThreads - 1) /
                                           kLookupThreads),
                                kLookupThreads, 0, s>>>(table, th, tw, lin,

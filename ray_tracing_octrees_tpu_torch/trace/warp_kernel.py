@@ -187,31 +187,6 @@ def _launch(lib, table, ks, axis_world, width, height, has_shadow,
     return out
 
 
-def _launch_first_port(table, ks, axis_world, width, height, has_shadow):
-    """The first port's kernel (one pixel a thread, runtime axes), kept in
-    the source to be timed beside :func:`_launch`'s; not counted."""
-    fn = _build.load("warp_frame").warp_frame_first_port_launch
-    if fn.argtypes is None:
-        c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-        fn.argtypes = [c_ptr, c_int, c_int, c_ptr, c_ptr, c_int, c_int,
-                       c_float, c_float, c_int, c_int, c_int, c_int, c_ptr]
-        fn.restype = c_int
-    th, tw = table.shape
-    sx, sy = _pixel_steps(width, height)
-    s, a, b = _SAB_IDX[axis_world]
-    ks = np.ascontiguousarray(ks, np.float32)
-    with torch.cuda.device(table.device):
-        out = torch.empty((height, width), dtype=torch.int32,
-                          device=table.device)
-        rc = fn(table.data_ptr(), th, tw, ks.ctypes.data, out.data_ptr(),
-                width, height, float(sx), float(sy), s, a, b,
-                int(bool(has_shadow)),
-                torch.cuda.current_stream(table.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"warp_frame launch failed: cudaError {rc}")
-    return out
-
-
 def warp_frame_reference(table: torch.Tensor, kscal, axis_world: int,
                          width: int, height: int,
                          has_shadow: bool) -> torch.Tensor:
@@ -355,9 +330,8 @@ def _lookup_reference(tables: torch.Tensor, lin: torch.Tensor):
     return torch.stack(out)
 
 
-# the single-plane kernel's forms and their codes in csrc/warp_lookup.cu:
-# the vector form at LOOKUP_VECTOR_PX pixels a thread, the general form at 0
-LOOKUP_VECTOR_PX = 4
+# the single-plane kernel's forms, by their codes in csrc/warp_lookup.cu
+LOOKUP_FORM_CODE = {"general": 0, "vector": 1}
 LOOKUP_FORM_LAUNCHES: Dict[str, int] = {"vector": 0, "general": 0}
 
 
@@ -377,28 +351,22 @@ def _lookup_launch(tables: torch.Tensor, lin: torch.Tensor,
     entry where ``form`` is None, else the single-plane entry in the form
     of that code."""
     lib = _build.load("warp_lookup")
-    c_int, c_i64, c_ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-    if form is None:
-        fn = lib.warp_lookup_multi_launch
-        if fn.argtypes is None:
-            fn.argtypes = [c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_i64,
-                           c_ptr]
-            fn.restype = c_int
-    else:
-        fn = lib.warp_lookup_launch
-        if fn.argtypes is None:
-            fn.argtypes = [c_ptr, c_int, c_int, c_ptr, c_ptr, c_i64, c_int,
-                           c_ptr]
-            fn.restype = c_int
+    single = form is not None
+    fn = lib.warp_lookup_launch if single else lib.warp_lookup_multi_launch
+    if fn.argtypes is None:
+        c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+        fn.argtypes = ([c_ptr] + [c_int] * (2 if single else 3)
+                       + [c_ptr, c_ptr, ctypes.c_int64]
+                       + [c_int] * single + [c_ptr])
+        fn.restype = c_int
     p, th, tw = tables.shape
     with torch.cuda.device(tables.device):
         out = torch.empty((p,) + tuple(lin.shape), dtype=torch.float32,
                           device=tables.device)
         stream = torch.cuda.current_stream(tables.device).cuda_stream
-        ptrs = (tables.data_ptr(), lin.data_ptr(), out.data_ptr())
-        rc = (fn(ptrs[0], p, th, tw, *ptrs[1:], lin.numel(), stream)
-              if form is None else
-              fn(ptrs[0], th, tw, *ptrs[1:], lin.numel(), form, stream))
+        rc = fn(tables.data_ptr(), *((th, tw) if single else (p, th, tw)),
+                lin.data_ptr(), out.data_ptr(), lin.numel(),
+                *((form,) if single else ()), stream)
     if rc != 0:
         raise RuntimeError(f"warp_lookup launch failed: cudaError {rc}")
     return out
@@ -421,8 +389,7 @@ def warp_lookup(table: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
     if lin.numel() == 0:
         return torch.empty(lin.shape, dtype=torch.float32, device=lin.device)
     form = lookup_form(lin)
-    out = _lookup_launch(tables, lin,
-                         LOOKUP_VECTOR_PX if form == "vector" else 0)[0]
+    out = _lookup_launch(tables, lin, LOOKUP_FORM_CODE[form])[0]
     warp_lookup.launches += 1
     LOOKUP_FORM_LAUNCHES[form] += 1
     return out

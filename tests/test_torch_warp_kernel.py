@@ -137,6 +137,63 @@ def test_ambient_word_matches_plain_rounding(ambient):
     assert tw.ambient_word(ks) == (q[0] << 16) | (q[1] << 8) | q[2]
 
 
+def _vox_numerators(packed, scal, aw):
+    """Every f32 numerator the kernel divides by vox on a frame: d_s, d_a
+    and d_b of each pixel's ray, and pin_c - org_c of each hit (the plain
+    version's own arithmetic)."""
+    table = torch.from_numpy(packed)
+    ks = tw._check(table, tw.frame_scalars(scal), aw, W, H)
+    k, d3, behind, invalid, iu, iv = tw._texels(INTER, INTER, ks, aw, W, H,
+                                                "cpu")
+    val = torch.where(invalid, -1.0, table[iu.long(), iv.long()])
+    hit = (val >= 0) & ~behind
+    vox, eye_s = k[tw._KS_VOX], k[tw._KS_EYE_S]
+    z_f = torch.clamp(val - torch.where(val >= 2048.0, 2048.0, 0.0), min=0.0)
+    d_len = torch.sqrt(d3[0] * d3[0] + d3[1] * d3[1] + d3[2] * d3[2])
+    d_s = d3[tw._SAB_IDX[aw][0]]
+    t_w = torch.where(hit, (z_f - eye_s) * vox * d_len / d_s, 0.0)
+    nums = list(d3)
+    for c in range(3):
+        dir_c = d3[c] / d_len
+        p_c = k[tw._KS_CAM + c] + dir_c * t_w
+        nums.append(((p_c + dir_c * (0.25 * vox)) - k[tw._KS_ORG + c])[hit])
+    return float(vox), np.concatenate([n.reshape(-1).numpy() for n in nums])
+
+
+@pytest.mark.parametrize("name", list(POSES))
+def test_vox_reciprocal_divisions_exact(scene, name):
+    """The kernel multiplies by vox_reciprocal(vox) where it is exact (vox a
+    power of two, as here: 1/32): every division by vox of the frame, in
+    f32, equals that product bit for bit."""
+    packed, scal, aw = _frame_inputs(scene, name)
+    vox, nums = _vox_numerators(packed, scal, aw)
+    r = tw.vox_reciprocal(vox)
+    assert r == 32.0 and nums.dtype == np.float32 and nums.size > 3 * W * H
+    quo = nums / np.float32(vox)
+    prod = nums * np.float32(r)
+    assert np.array_equal(quo.view(np.int32), prod.view(np.int32))
+
+
+def test_vox_reciprocal_only_where_exact():
+    """Powers of two (normal or not, with a finite reciprocal) get theirs;
+    on random f32 bit patterns, subnormals and infinities included, the
+    product equals the quotient bitwise. Anything else gets 0."""
+    rng = np.random.default_rng(4)
+    bits = rng.integers(0, 2 ** 31 - 1, 200_000, dtype=np.int64)
+    x = bits.astype(np.uint32).view(np.float32)
+    x = np.concatenate([x, -x, np.float32([0.0, -0.0, np.inf, -np.inf])])
+    x = x[~np.isnan(x)]
+    with np.errstate(over="ignore", under="ignore"):
+        for e in (-8, -5, 0, 3, 20, -127, 126):
+            v = np.float32(2.0) ** np.float32(e)
+            r = tw.vox_reciprocal(v)
+            assert r != 0.0 and float(r) * float(v) == 1.0
+            assert np.array_equal((x / v).view(np.int32),
+                                  (x * np.float32(r)).view(np.int32))
+    for v in (1 / 255, 0.1, 3.0, 0.0, np.inf, np.nan, 2.0 ** -140):
+        assert tw.vox_reciprocal(v) == 0.0
+
+
 def test_cpu_wrapper_runs_reference_without_counting(scene):
     packed, scal, aw = _frame_inputs(scene, "exterior")
     table = torch.from_numpy(packed)
