@@ -42,7 +42,9 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
   10. lookups warp_lookup on sweep_first_hit's 1024^2 table and 1080p lin
               and on edge fields made from it (a view at a 4-byte offset, a
               pixel count not a multiple of 4, all and no misses), each
-              launching the form lookup_form chooses; warp_lookup_multi on
+              launching the forms lookup_forms chooses (a ragged field:
+              the vector form, then the general form for its last 1-3
+              pixels) and timed warm; warp_lookup_multi on
               the exact frame's three planes at both radius-2.0 poses; each
               bitwise against its plain version; their times warm and cold
               (N_COLD copies of lin) beside the byte bound, the plain
@@ -252,7 +254,7 @@ def time_vox_division(table, kscal, axis_world, has_sh):
 
 
 def lookup_edge_inputs(lin):
-    """{label: (lin field, the warp_lookup form it should launch)} made
+    """{label: (lin field, warp_lookup's launches by form on it)} made
     from a real lin field: a view at a 4-byte storage offset, a pixel
     count that is not a multiple of 4, every pixel a miss, none."""
     import torch
@@ -260,10 +262,10 @@ def lookup_edge_inputs(lin):
     flat = lin.reshape(-1)
     buf = torch.empty(flat.numel() + 1, dtype=lin.dtype, device=lin.device)
     buf[1:] = flat
-    return {"offset view": (buf[1:].view(lin.shape), "general"),
-            "ragged": (flat[:-3].clone(), "general"),
-            "all miss": (torch.full_like(lin, -1), "vector"),
-            "no miss": (torch.where(lin < 0, 0, lin), "vector")}
+    return {"offset view": (buf[1:].view(lin.shape), {"general": 1}),
+            "ragged": (flat[:-3].clone(), {"vector": 1, "general": 1}),
+            "all miss": (torch.full_like(lin, -1), {"vector": 1}),
+            "no miss": (torch.where(lin < 0, 0, lin), {"vector": 1})}
 
 
 def compare_lookup_bodies(tab, ln, lins, dev_ms_of):
@@ -1092,8 +1094,8 @@ def main() -> int:
         restore()
         multi_in[name] = calls[0]
     # warp_lookup's forms on edge inputs made from the bench lin: each
-    # bitwise, each launching the form lookup_form chooses
-    lookup_forms = {}
+    # bitwise, each launching the forms lookup_forms chooses
+    lookup_forms, lookup_edge_ms = {}, {}
     for label, (ln, want) in lookup_edge_inputs(lin).items():
         before = dict(wk.LOOKUP_FORM_LAUNCHES)
         out = wk.warp_lookup(table, ln)
@@ -1102,16 +1104,19 @@ def main() -> int:
         got = {k: v - before[k] for k, v in wk.LOOKUP_FORM_LAUNCHES.items()
                if v != before[k]}
         share = equal_share(out, ref)
-        lookup_forms[label] = got
-        log("lookups", f"warp_lookup {label} ({ln.numel()} px, storage "
-            f"offset {ln.storage_offset()}): launches by form {got}, bitwise "
-            f"{share:.6f}")
-        if got != {want: 1} or share != 1.0:
+        if got != want or share != 1.0:
             raise RuntimeError(f"warp_lookup on the {label} input: launches "
                                f"by form {got} (want {want}), bitwise {share}")
+        lookup_forms[label] = got
+        _, per = profiled(lambda: wk.warp_lookup(table, ln), 50)
+        lookup_edge_ms[label] = sum(v for k, v in per.items()
+                                    if "warp_lookup" in k) or None
+        log("lookups", f"warp_lookup {label} ({ln.numel()} px, storage "
+            f"offset {ln.storage_offset()}): launches by form {got}, bitwise "
+            f"{share:.6f}, device ms warm {lookup_edge_ms[label]}")
 
-    kernel_names = {"warp_lookup": ("warp_lookup_vector_kernel",
-                                    "warp_lookup_general_kernel"),
+    # the kernels of the timed inputs: the bench lin takes the vector form
+    kernel_names = {"warp_lookup": ("warp_lookup_vector_kernel",),
                     "warp_lookup_multi": ("warp_lookup_kernel",)}
     for kname, inputs in {"warp_lookup": {"bench": (table, lin)},
                           "warp_lookup_multi": multi_in}.items():
@@ -1250,6 +1255,8 @@ def main() -> int:
         "launches_by_form": forms_of,
         "ptxas": {k: v for n in kernel_names[kname] for k, v in
                   kernel_resources(ptxas.get("warp_lookup", {}), n).items()},
+        **({"edge_ms_warm": lookup_edge_ms} if kname == "warp_lookup"
+           else {}),
         **{k: lk[k] for k in ("first_port_ms", "first_port_ms_cold",
                               "vector_in_turns_ms", "vector_in_turns_ms_cold")
            if k in lk},

@@ -36,12 +36,14 @@
 //     TH * TW <= 2^31 and sends n >= 2^31 to the general form). Eight
 //     pixels a thread (two runs) measured 4.7 us against four's 4.3 at
 //     1080p (PERF.md), so one run it is;
-//   - the general form takes what the vector form cannot: a lin field that
-//     is not 16-byte aligned (a contiguous view at a storage offset), a
-//     pixel count that is not a multiple of 4, or n >= 2^31; one pixel a
-//     thread, 64-bit offsets. The wrapper chooses the form
-//     (warp_kernel.lookup_form) and counts each form's launches.
-// The multi-plane entry keeps the first port's kernel, warp_lookup_kernel:
+//   - the general form is the first port's kernel, warp_lookup_kernel, at
+//     one plane: one pixel a thread, 64-bit offsets. It takes what the
+//     vector form cannot: a lin field that is not 16-byte aligned (a
+//     contiguous view at a storage offset), the last 1-3 pixels of a
+//     field whose pixel count is not a multiple of 4 (the vector form
+//     takes the rest), or n >= 2^31. The wrapper chooses the launches
+//     (warp_kernel.lookup_forms) and counts each form's.
+// The multi-plane entry launches the same first-port kernel at P planes:
 // it reaches about half its bound and beats one torch.take of the same
 // gather.
 
@@ -101,26 +103,13 @@ __global__ void __launch_bounds__(kLookupThreads)
   reinterpret_cast<float4*>(out)[run] = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// One plane, one pixel a thread, any alignment and count.
-__global__ void __launch_bounds__(kLookupThreads)
-    warp_lookup_general_kernel(const float* __restrict__ table, int th,
-                               int tw, const int32_t* __restrict__ lin,
-                               float* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * kLookupThreads + threadIdx.x;
-  if (i >= n) return;
-  const int32_t l = __ldg(lin + i);
-  out[i] = l < 0 ? -1.0f
-                 : __ldg(table + (int64_t)min(l >> 10, th - 1) * tw +
-                         min(l & 1023, tw - 1));
-}
-
 }  // namespace
 
 // One plane: `table` f32[th, tw] with th * tw <= 2^31, `lin` i32[n],
-// `out` f32[n] (16-byte aligned). `form` 0 launches the general form, 1
-// the vector form, which needs `lin` 16-byte aligned, n % 4 == 0 and
-// n < 2^31. Launches on `stream` (a cudaStream_t as void*), does not
-// synchronise, and returns cudaGetLastError() (0 on success), or
+// `out` f32[n]. `form` 0 launches the general form, 1 the vector form,
+// which needs `lin` and `out` 16-byte aligned, n % 4 == 0 and n < 2^31.
+// Launches on `stream` (a cudaStream_t as void*), does not synchronise,
+// and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a form the arguments do not allow.
 extern "C" int warp_lookup_launch(const float* table, int th, int tw,
                                   const int32_t* lin, float* out, int64_t n,
@@ -140,11 +129,7 @@ extern "C" int warp_lookup_launch(const float* table, int th, int tw,
     return (int)cudaGetLastError();
   }
   if (form != 0) return (int)cudaErrorInvalidValue;
-  warp_lookup_general_kernel<<<(unsigned)((n + kLookupThreads - 1) /
-                                          kLookupThreads),
-                               kLookupThreads, 0, s>>>(table, th, tw, lin,
-                                                       out, n);
-  return (int)cudaGetLastError();
+  return launch(table, 1, th, tw, lin, out, n, stream);
 }
 
 // P planes: `tables` f32[planes, th, tw], `lin` i32[n], `out`

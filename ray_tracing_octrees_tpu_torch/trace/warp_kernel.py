@@ -23,14 +23,14 @@ counterparts of the reference's ``warp_lookup`` and ``warp_lookup_multi``:
 ``csrc/warp_lookup.cu`` on CUDA tensors and run
 :func:`warp_lookup_reference` / :func:`warp_lookup_multi_reference` on CPU
 ones. The single-plane kernel comes in two forms, chosen by
-:func:`lookup_form` and counted in :data:`LOOKUP_FORM_LAUNCHES`.
+:func:`lookup_forms` and counted in :data:`LOOKUP_FORM_LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -335,21 +335,25 @@ LOOKUP_FORM_CODE = {"general": 0, "vector": 1}
 LOOKUP_FORM_LAUNCHES: Dict[str, int] = {"vector": 0, "general": 0}
 
 
-def lookup_form(lin: torch.Tensor) -> str:
-    """The form of the single-plane lookup kernel for ``lin``: "vector"
-    where its data is 16-byte aligned, its pixel count a multiple of 4 and
-    below 2^31 (the output is a fresh, aligned allocation); else
-    "general"."""
+def lookup_forms(lin: torch.Tensor) -> List[Tuple[str, int]]:
+    """The single-plane lookup kernel's launches for ``lin``, in order, as
+    (form, pixels): where its data is 16-byte aligned and its pixel count
+    n below 2^31, the vector form over the first n & ~3 pixels (the output
+    is a fresh, aligned allocation); the general form over the rest, which
+    is the last 1-3 pixels of such a field, or all of any other."""
     n = lin.numel()
-    aligned = lin.data_ptr() % 16 == 0
-    return "vector" if aligned and n % 4 == 0 and n < 2 ** 31 else "general"
+    n_vec = n & ~3 if lin.data_ptr() % 16 == 0 and n < 2 ** 31 else 0
+    return [(f, k) for f, k in (("vector", n_vec), ("general", n - n_vec))
+            if k]
 
 
 def _lookup_launch(tables: torch.Tensor, lin: torch.Tensor,
-                   form: Optional[int] = None):
-    """Launch ``csrc/warp_lookup.cu`` on the current stream: the multi-plane
-    entry where ``form`` is None, else the single-plane entry in the form
-    of that code."""
+                   out: torch.Tensor, form: Optional[int] = None,
+                   start: int = 0, n: Optional[int] = None):
+    """Launch ``csrc/warp_lookup.cu`` on the current stream into ``out``:
+    the multi-plane entry where ``form`` is None, else the single-plane
+    entry in the form of that code, over ``n`` pixels of the flat ``lin``
+    from ``start`` (all of them by default)."""
     lib = _build.load("warp_lookup")
     single = form is not None
     fn = lib.warp_lookup_launch if single else lib.warp_lookup_multi_launch
@@ -360,16 +364,14 @@ def _lookup_launch(tables: torch.Tensor, lin: torch.Tensor,
                        + [c_int] * single + [c_ptr])
         fn.restype = c_int
     p, th, tw = tables.shape
+    n = lin.numel() - start if n is None else n
     with torch.cuda.device(tables.device):
-        out = torch.empty((p,) + tuple(lin.shape), dtype=torch.float32,
-                          device=tables.device)
         stream = torch.cuda.current_stream(tables.device).cuda_stream
         rc = fn(tables.data_ptr(), *((th, tw) if single else (p, th, tw)),
-                lin.data_ptr(), out.data_ptr(), lin.numel(),
+                lin.data_ptr() + 4 * start, out.data_ptr() + 4 * start, n,
                 *((form,) if single else ()), stream)
     if rc != 0:
         raise RuntimeError(f"warp_lookup launch failed: cudaError {rc}")
-    return out
 
 
 def warp_lookup(table: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
@@ -379,19 +381,20 @@ def warp_lookup(table: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
     packed ``(iu << 10) | iv``; the result has ``lin``'s shape. A CUDA
     ``table`` launches the kernel of ``csrc/warp_lookup.cu`` (the port of
     the reference's ``_warp_onehot_kernel``) on the current stream, in the
-    form :func:`lookup_form` chooses; a CPU one runs
+    forms :func:`lookup_forms` chooses; a CPU one runs
     :func:`warp_lookup_reference`.
     """
     tables = _one_plane(table)
     _check_lookup(tables, lin)
     if tables.device.type == "cpu":
         return _lookup_reference(tables, lin)[0]
-    if lin.numel() == 0:
-        return torch.empty(lin.shape, dtype=torch.float32, device=lin.device)
-    form = lookup_form(lin)
-    out = _lookup_launch(tables, lin, LOOKUP_FORM_CODE[form])[0]
-    warp_lookup.launches += 1
-    LOOKUP_FORM_LAUNCHES[form] += 1
+    out = torch.empty(lin.shape, dtype=torch.float32, device=lin.device)
+    start = 0
+    for form, n in lookup_forms(lin):
+        _lookup_launch(tables, lin, out, LOOKUP_FORM_CODE[form], start, n)
+        warp_lookup.launches += 1
+        LOOKUP_FORM_LAUNCHES[form] += 1
+        start += n
     return out
 
 
@@ -419,7 +422,9 @@ def warp_lookup_multi(tables: torch.Tensor,
     _check_lookup(tables, lin)
     if tables.device.type == "cpu":
         return _lookup_reference(tables, lin)
-    out = _lookup_launch(tables, lin)
+    out = torch.empty((tables.shape[0],) + tuple(lin.shape),
+                      dtype=torch.float32, device=tables.device)
+    _lookup_launch(tables, lin, out)
     warp_lookup_multi.launches += 1
     return out
 

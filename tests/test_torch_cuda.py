@@ -223,9 +223,9 @@ def test_lookup_kernels_edge_cases(scene, which):
 
 
 def _lookup_field(which):
-    """(table, lin, the form warp_lookup should launch) for the form
-    tests: a lin view at a 4-byte storage offset, a pixel count that is
-    not a multiple of 4, every pixel a miss, none."""
+    """(table, lin, the launches by form warp_lookup should make) for the
+    form tests: a lin view at a 4-byte storage offset, a pixel count that
+    is not a multiple of 4, every pixel a miss, none."""
     gen = torch.Generator().manual_seed(5)
     th, tw = 512, 1024
     table = torch.rand((th, tw), generator=gen).cuda()
@@ -235,29 +235,29 @@ def _lookup_field(which):
     lin = ((iu << 10) | iv).cuda()
     lin[::5] = -1
     if which == "offset":
-        return table, lin[1:].view(H, W), "general"
+        return table, lin[1:].view(H, W), {"general": 1}
     if which == "ragged":
-        return table, lin[:n - 3].clone(), "general"
+        return table, lin[:n - 3].clone(), {"vector": 1, "general": 1}
     if which == "all_miss":
         return table, torch.full((H, W), -1, dtype=torch.int32,
-                                 device="cuda"), "vector"
-    return table, lin[:n].clamp(min=0).view(H, W), "vector"
+                                 device="cuda"), {"vector": 1}
+    return table, lin[:n].clamp(min=0).view(H, W), {"vector": 1}
 
 
 @pytest.mark.parametrize("which", ["offset", "ragged", "all_miss", "no_miss"])
 def test_warp_lookup_forms_match_plain(scene, which):
-    """warp_lookup in the form lookup_form chooses, counted in
+    """warp_lookup in the forms lookup_forms chooses, counted in
     LOOKUP_FORM_LAUNCHES, bitwise equal to its plain version."""
     table, lin, want = _lookup_field(which)
-    assert warp_kernel.lookup_form(lin) == want
+    assert [f for f, _ in warp_kernel.lookup_forms(lin)] == list(want)
     before = dict(warp_kernel.LOOKUP_FORM_LAUNCHES)
     n_before = warp_kernel.warp_lookup.launches
     out = warp_kernel.warp_lookup(table, lin)
     got = {k: v - before[k]
            for k, v in warp_kernel.LOOKUP_FORM_LAUNCHES.items()
            if v != before[k]}
-    assert got == {want: 1}
-    assert warp_kernel.warp_lookup.launches == n_before + 1
+    assert got == want
+    assert warp_kernel.warp_lookup.launches == n_before + sum(want.values())
     ref = warp_kernel.warp_lookup_reference(table, lin)
     torch.cuda.synchronize()
     assert out.shape == lin.shape and torch.equal(out, ref)

@@ -196,7 +196,6 @@ def test_port_imports_no_jax():
             "ray_tracing_octrees_tpu_torch.core.cache, "
             "ray_tracing_octrees_tpu_torch.convert, "
             "ray_tracing_octrees_tpu_torch.trace.fmad_check, "
-            "ray_tracing_octrees_tpu_torch.trace.frame_forms, "
             "ray_tracing_octrees_tpu_torch.trace.fast_exact, "
             "ray_tracing_octrees_tpu_torch.trace.octree_trace, "
             "ray_tracing_octrees_tpu_torch.tools.cases, "

@@ -150,14 +150,19 @@ def _lin_field(kind):
 
 @pytest.mark.parametrize("kind,want", [("aligned", "vector"),
                                        ("offset", "general"),
-                                       ("ragged", "general"),
+                                       ("ragged", "vector+general"),
                                        ("2-d", "vector")])
 def test_lookup_form_choice(kind, want):
-    """The single-plane kernel's vector form takes 16-byte aligned lin
-    fields of a multiple of 4 pixels; the general form the rest."""
+    """The single-plane kernel's vector form takes the first n & ~3 pixels
+    of a 16-byte aligned lin field; the general form the last 1-3 pixels
+    of such a field, or all of an unaligned one."""
     lin = _lin_field(kind)
     assert lin.is_contiguous()
-    assert tw.lookup_form(lin) == want
+    forms = tw.lookup_forms(lin)
+    assert "+".join(f for f, _ in forms) == want
+    assert sum(k for _, k in forms) == lin.numel()
+    if kind == "ragged":
+        assert forms == [("vector", 4092), ("general", 3)]
 
 
 def test_out_of_table_indices_clamp():
