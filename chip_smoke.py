@@ -8,8 +8,7 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
   2. build    compile every CUDA kernel of the paths with nvcc (one process
               per source, all started together); print each kernel's
               registers, spills and stack frame (ptxas -v); refuse a spill
-              in any source and a stack frame in csrc/warp_frame.cu and
-              csrc/warp_lookup.cu
+              or a stack frame in any source
   3. scene    the reference's 256^3 sphere and its directional shadow volume
   4. frame    1920x1080 frames at the bench pose through render_fast_frame,
               with every kernel's launch count read around the run; the
@@ -24,7 +23,8 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               multiple of 4
   6. timing   frame ms, Mrays/s, and warp_frame's time beside its bound and
               beside its instantiation that divides by vox (in turns); the
-              pixels that shade, and the class-weighted operation count
+              bound counts the operations each pixel's class runs (the
+              class-weighted count) at the f32 rate without FMA
   7. first hit  sweep_first_hit at 1920x1080 and the bench pose, its
               launch counts read around the run
   8. exact    1920x1080 frames of render_fast_exact_frame with the shadow
@@ -35,7 +35,8 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               per-pixel resolve and fallback
   9. parity   hit mismatch and depth RMS (voxels) against the port's DDA
               oracle trace_octree on the card: sweep_first_hit at 240x136
-              (bench pose), fast_exact_first_hit at 480x270 (radius 2.0),
+              (bench pose, the headline's aspect, as bench.py's parity
+              line), fast_exact_first_hit at 480x270 (radius 2.0),
               where every mismatch must be a grazing crossing; then both
               on the 32^3 sphere on the card and on the CPU, which must
               give equal hit masks and equal t
@@ -62,8 +63,17 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               byte bound, its plain version and one torch.take of the flat
               index, warm (the same inputs back to back) and cold (rotating
               through N_COLD copies of the index fields, over twice the
-              50 MB L2, so each launch finds them in device memory)
-  12. lines   the kernels JSON line, the nvidia-smi line, and last the
+              50 MB L2, so each launch finds them in device memory); the
+              launches of kernels 1, 3 and 4 by form on the drivers' inputs
+              and on each edge set; kernel 4's forms timed in turns, warm
+              and cold, and each pass of the two-pass warp beside its own
+              bound
+  12. bench   the port's bench (ray_tracing_octrees_tpu_torch/bench.py main,
+              at its defaults) with the frame kernels' launch counts set to
+              0 before it and read after it: its one short line, its
+              record's sections (headline, parity line equal to phase 9's,
+              the exact section, the 16-pose ensemble)
+  13. lines   the kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line
 
 Imports nothing of JAX or of the JAX package. Without a CUDA device, or
@@ -89,6 +99,9 @@ N_FRAMES = 20
 # The H100 SXM's published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+# ... counted without FMA: the rate counts an FMA as two operations, and
+# warp_frame.cu's -fmad=false build issues each operation alone
+PEAK_F32_NOFMA_S = PEAK_F32_S / 2
 # f32 operations per pixel in warp_frame.cu, counted from the source
 # (ray 20, plane + texel 13, depth 12, normal 3x16 + 1, Lambert 5, colour 18)
 WARP_OPS_PER_PIXEL = 117
@@ -143,11 +156,11 @@ def distinct(flat, valid) -> int:
     return int(torch.unique(flat[valid]).numel())
 
 
-def bound(nbytes: int, ops: int):
+def bound(nbytes: int, ops: int, ops_rate: float = PEAK_F32_S):
     """(least ms, what bounds it): ``nbytes`` at the memory rate or ``ops``
-    at the f32 rate, the larger."""
+    at ``ops_rate`` (operations a second), the larger."""
     b_ms = nbytes / PEAK_BYTES_S * 1e3
-    o_ms = ops / PEAK_F32_S * 1e3
+    o_ms = ops / ops_rate * 1e3
     return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
 
 
@@ -381,8 +394,11 @@ EXP_ROWS = {
     7: ("tools/exp_warp_tune.py:27", ("onehot_window_kernel",)),
     8: ("tools/exp_warp_tune2.py:42", ("onehot_window_kernel",)),
     9: ("tools/exp_warp2pass.py:34", ("row_window_kernel",
-                                      "col_window_kernel")),
+                                      "col_window")),
 }
+# kernel 4's forms, by the code col_window_launch takes; "vector8" (eight
+# pixels a thread) is timed beside them and never chosen by the wrapper
+COL_FORMS = {"general": 0, "vector": 1, "vector8": 2}
 EXP_LIBRARY = "torch.take of the flat index (equal where the window covers)"
 
 
@@ -447,9 +463,11 @@ def experiments(smi: str) -> list:
                  for k, v in cases.edge_inputs("cuda").items()}}
     shares = {row: {} for row in EXP_ROWS}
     max_err = {row: 0.0 for row in EXP_ROWS}
+    input_forms = {}   # per input set: kernels 1, 3 and 4's launches by form
     for k in exp_warp.FORM_LAUNCHES:
         exp_warp.FORM_LAUNCHES[k] = 0
     for label, kw in inputs.items():
+        before = dict(exp_warp.FORM_LAUNCHES)
         for row, name, fn, plain, args in cases.kernel_cases(**kw):
             out = fn(*args)
             ref = plain(*args)
@@ -461,6 +479,17 @@ def experiments(smi: str) -> list:
             if share != 1.0:
                 raise RuntimeError(f"{name} on the {label} differs from its "
                                    f"plain version: bitwise share {share}")
+        input_forms[label] = {k: v - before[k] for k, v in
+                              exp_warp.FORM_LAUNCHES.items() if v != before[k]}
+        if "iv9" in kw:
+            # kernel 4: the vector form unless iv is not 16-byte aligned
+            want = "general" if label == "edge set offset views" else "vector"
+            got = {k: v for k, v in input_forms[label].items()
+                   if k.startswith("col_window")}
+            if got != {f"col_window {want}": 1}:
+                raise RuntimeError(f"warp_pass2 on the {label}: launches by "
+                                   f"form {got}, want col_window {want}")
+        log("experiments", f"{label}: launches by form {input_forms[label]}")
     two = inputs["row 9 driver"]
     out = exp_warp2pass.warp_two_pass(two["t9"], two["iustar"], two["iv9"])
     ref = exp_warp2pass.warp_two_pass_reference(two["t9"], two["iustar"],
@@ -470,10 +499,11 @@ def experiments(smi: str) -> list:
     check_forms = {k: v for k, v in exp_warp.FORM_LAUNCHES.items() if v}
     log("experiments", "bitwise equal to the plain versions on "
         + ", ".join(f"row {r}: {len(s)} cases" for r, s in shares.items())
-        + f"; kernels 1 and 3 by form {check_forms}")
-    if not all(check_forms.get(f"{k} general") for k in ("onehot_window",
-                                                         "row_window")):
-        raise RuntimeError(f"a general form went unchecked: {check_forms}")
+        + f"; kernels 1, 3 and 4 by form {check_forms}")
+    if not all(check_forms.get(f"{k} {f}") for k in (
+            "onehot_window", "row_window", "col_window")
+            for f in ("general", "vector")):
+        raise RuntimeError(f"a form went unchecked: {check_forms}")
 
     # times at the drivers' shapes: each row's variants, the first its
     # headline, with the plain version and torch.take timed beside it.
@@ -568,6 +598,49 @@ def experiments(smi: str) -> list:
         per = {n: sum(v for k, v in per.items() if n in k) for n in names}
         return sum(per.values()), per
 
+    # kernel 4's forms on the row 9 driver's M and iv, each bitwise against
+    # the plain version, then timed in turns (general, vector, vector8,
+    # vector8, vector, general), warm and cold; launched through the entry
+    # point with a form code, so FORM_LAUNCHES does not count them
+    m9 = exp_warp2pass.warp_pass1_reference(r9["table"], r9["iustar"])
+    iv9 = r9["iv"]
+    h9, w9 = iv9.shape
+
+    def col_form(code):
+        return lambda iv: exp_warp._call(
+            "col_window_launch", iv, (h9, w9), m9, m9.shape[1], iv, None, h9,
+            w9, exp_warp2pass.WIN2, code)
+
+    ref9 = exp_warp2pass.warp_pass2_reference(m9, iv9)
+    for f, code in COL_FORMS.items():
+        out = col_form(code)(iv9)
+        torch.cuda.synchronize()
+        if cases.bits_equal_share(out, ref9) != 1.0:
+            raise RuntimeError(f"kernel 4's {f} form differs from its plain "
+                               f"version on the row 9 driver's inputs")
+    ivs = [(iv9.clone(),) for _ in range(N_COLD)]
+    col_turns = {}
+    for f in list(COL_FORMS) + list(reversed(COL_FORMS)):
+        fn = col_form(COL_FORMS[f])
+        warm = device_ms(lambda: fn(iv9), ("col_window",))[0]
+        cold = device_ms(rotating(fn, ivs), ("col_window",))[0]
+        col_turns.setdefault(f, []).append((warm, cold))
+    del ivs
+    log("experiments", f"[{smi}] kernel 4 forms in turns, device ms warm/"
+        "cold: " + ", ".join(f"{f} " + " ".join(f"{w:.4f}/{c:.4f}"
+                                                 for w, c in v)
+                             for f, v in col_turns.items()))
+    # each pass's own bound: pass 1 reads iustar and T2's distinct texels
+    # and writes M; pass 2 reads iv and M's distinct texels and writes out
+    pass_bounds = {
+        "pass1": bound(4 * r9["iustar"].numel() + 4 * m9.numel()
+                       + 4 * numbered_texels(
+                           exp_warp2pass.warp_pass1_reference, r9["table"],
+                           r9["iustar"]), 10 * m9.numel()),
+        "pass2": bound(8 * iv9.numel() + 4 * numbered_texels(
+            exp_warp2pass.warp_pass2_reference, m9, iv9), 10 * iv9.numel()),
+    }
+
     rows = []
     for row, vs in variants.items():
         timed = []
@@ -645,12 +718,115 @@ def experiments(smi: str) -> list:
             "window_mismatch": mismatch,
             "variants": timed,
             "driver_ms": results[row]["ms"],
+            "launches_by_form_on_inputs": {
+                k: {f: n for f, n in v.items() if f.split()[0] in {
+                    4: ("onehot_window",), 6: ("row_window",),
+                    7: ("onehot_window",), 8: ("onehot_window",),
+                    9: ("row_window", "col_window")}.get(row, ())}
+                for k, v in input_forms.items()},
         })
+        if row == 9:
+            per, per_cold = head["kernel_device_ms"], \
+                head["kernel_device_ms_cold"]
+            rows[-1]["passes"] = {
+                p: {"kernel": k, "bound_ms": b_ms, "bound_by": b_by,
+                    "ms": per.get(k), "ms_cold": per_cold.get(k),
+                    "bound_share_cold": (b_ms / per_cold[k]
+                                         if per_cold.get(k) else None)}
+                for p, k, (b_ms, b_by) in (
+                    ("pass1", "row_window_kernel", pass_bounds["pass1"]),
+                    ("pass2", "col_window", pass_bounds["pass2"]))}
+            rows[-1]["col_window_forms_in_turns"] = col_turns
+            rows[-1]["col_window_forms_best"] = {
+                f: {"ms": min(w for w, _ in v), "ms_cold": min(c for _, c in v)}
+                for f, v in col_turns.items()}
+            log("experiments", f"[{smi}] row 9 passes: " + "; ".join(
+                f"{p} {d['ms'] or 0:.4f}/{d['ms_cold'] or 0:.4f} ms, bound "
+                f"{d['bound_ms'] * 1e3:.2f} us ({d['bound_by']}), share cold "
+                f"{d['bound_share_cold'] or 0:.3f}"
+                for p, d in rows[-1]["passes"].items()))
         log("experiments", f"[{smi}] row {row} {head['variant']}: plain "
             f"{p_ms:.4f} ms, torch.take {l_ms:.4f} ms ({lib_ms or 0:.4f} ms "
             f"warm, {lib_cold or 0:.4f} ms cold under the profiler; window "
             f"mismatch {mismatch:.4f}); launches {rows[-1]['launches']}")
     return rows
+
+
+def run_bench_phase(parity_ref: dict) -> dict:
+    """Phase 12: the port's bench at its defaults, as
+    ``python -m ray_tracing_octrees_tpu_torch.bench`` runs it, with the
+    frame kernels' launch counts set to 0 before it and read after it.
+    Checks its one short line and each section of its record; returns a
+    summary for the kernels line."""
+    import contextlib
+    import io
+    import math
+
+    from ray_tracing_octrees_tpu_torch import bench
+    from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
+
+    kernels = {"warp_frame": wk.warp_frame, "warp_lookup": wk.warp_lookup,
+               "warp_lookup_multi": wk.warp_lookup_multi}
+    for fn in kernels.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main([])
+    secs = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    lines = buf.getvalue().splitlines()
+    if len(lines) != 1 or len(lines[0]) > bench.MAX_LINE:
+        raise RuntimeError(f"the bench printed {len(lines)} lines, the "
+                           f"first {len(lines[0]) if lines else 0} "
+                           f"characters long")
+    log("bench", lines[0])
+    short = json.loads(lines[0])
+    with open(short["record"]) as f:
+        rec = json.load(f)
+    ens = rec["parity_ensemble"]
+    near = rec["exact_radius_2"]
+    log("bench", f"{secs:.1f} s; launches {launches}; headline "
+        f"{rec['frame_ms']:.3f} ms (windows {rec['frame_ms_windows']}), "
+        f"{rec['value']:.1f} Mrays/s, hit fraction {rec['hit_fraction']:.4f}; "
+        f"parity {rec['parity_vs_exact']}; exact at the headline pose: "
+        f"{rec['exact_tracer_path'] or rec['exact_skip_reason']}; radius "
+        f"{near['radius_f']}: {near.get('frame_ms')} ms, "
+        f"{near.get('mrays')} Mrays/s ({near['path']}, {near.get('stats')})")
+    log("bench", f"ensemble: {ens['n_poses']} poses at {ens['resolution']}, "
+        f"median mismatch {ens['median_mismatch']:.5f}, max RMS "
+        f"{ens['max_rms_vox']:.4f} voxels, worst {ens['worst_pose']}; refs "
+        + ", ".join(f"{r['ref']} {r['mismatches']}" for r in ens["poses"]))
+    bad = []
+    if min(launches.values()) == 0 or launches["warp_frame"] < 61:
+        bad.append(f"launches {launches}")
+    if not (math.isfinite(rec["value"]) and rec["value"] > 0
+            and 0 < rec["hit_fraction"] < 1):
+        bad.append("headline")
+    par = rec["parity_vs_exact"]
+    if (par["mismatches"] != parity_ref["mismatches"] or not math.isclose(
+            par["depth_rms_voxels"], parity_ref["depth_rms_voxels"],
+            rel_tol=1e-6)):
+        bad.append(f"parity line {par} differs from phase 9's {parity_ref}")
+    if not (rec["exact_tracer_path"] is None and rec["exact_skip_reason"]
+            or rec["exact_tracer_path"] == "fast_exact"
+            and rec["exact_tracer_mrays"] > 0):
+        bad.append("exact section")
+    if near["path"] != "fast_exact" or not near["frame_ms"] > 0:
+        bad.append(f"radius-{near['radius_f']} exact frame {near}")
+    if ens["n_poses"] != 16 or not all(
+            math.isfinite(r["mismatch"]) and math.isfinite(r["rms_vox"])
+            for r in ens["poses"]):
+        bad.append("ensemble")
+    if bad:
+        raise RuntimeError(f"bench sections failed: {bad}")
+    return {"line": short, "seconds": secs, "launches": launches,
+            "frame_ms": rec["frame_ms"], "mrays_per_s": rec["value"],
+            "parity_vs_exact": par, "exact_tracer_path":
+            rec["exact_tracer_path"], "exact_radius_2": near,
+            "ensemble": {k: ens[k] for k in ("n_poses", "worst_pose",
+                                              "median_mismatch",
+                                              "max_rms_vox")}}
 
 
 def main() -> int:
@@ -704,8 +880,7 @@ def main() -> int:
         spilled = [fn for fn, r in report.items() if r["spill_bytes"]]
         if spilled:
             raise RuntimeError(f"{name}.cu kernels spill: {spilled}")
-        stacked = [fn for fn, r in report.items() if r["stack_frame_bytes"]
-                   and name in ("warp_frame", "warp_lookup")]
+        stacked = [fn for fn, r in report.items() if r["stack_frame_bytes"]]
         if stacked:
             raise RuntimeError(f"{name}.cu kernels keep a stack frame: "
                                f"{stacked}")
@@ -876,7 +1051,7 @@ def main() -> int:
         axis_world, WIDTH, HEIGHT, dev)
     texels1 = distinct(iu1.long() * tw_ + iv1, ~inv1)
     bytes_moved = texels1 * 4 + 35 * 4 + WIDTH * HEIGHT * 4
-    ops = WARP_OPS_PER_PIXEL * WIDTH * HEIGHT
+    ops_117 = WARP_OPS_PER_PIXEL * WIDTH * HEIGHT
     # the pixels that run the shading: hits, less shadowed ones when
     # shadows are on; the rest stop after the ray, plane and texel
     val1 = torch.where(inv1, -1.0, table[iu1.long(), iv1.long()])
@@ -895,8 +1070,11 @@ def main() -> int:
                  + WARP_OPS_BACK_FACING * n_back
                  + WARP_OPS_EARLY_EXIT * (WIDTH * HEIGHT - n_shaded))
     bound_bytes_ms = bytes_moved / PEAK_BYTES_S * 1e3
-    bound_ops_ms = ops / PEAK_F32_S * 1e3
-    bound_ms, bound_by = bound(bytes_moved, ops)
+    bound_ops_ms = class_ops / PEAK_F32_NOFMA_S * 1e3
+    bound_ms, bound_by = bound(bytes_moved, class_ops, PEAK_F32_NOFMA_S)
+    # the bound of earlier runs: 117 operations for every pixel at the
+    # FMA-counted rate, kept on the log line and in the record to compare
+    bound_117_ms = bound(bytes_moved, ops_117)[0]
     log("timing", f"[{smi}] frame {frame_ms:.3f} ms (best of 3 windows of "
         f"{N_FRAMES}: {', '.join(f'{w:.3f}' for w in windows)}), "
         f"{mrays:.1f} Mrays/s (2 rays per pixel); host enqueue "
@@ -906,15 +1084,18 @@ def main() -> int:
            else "not measured") + "), plain "
         f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us (bytes "
         f"{bound_bytes_ms * 1e3:.2f} us with {texels1} distinct texels, "
-        f"f32 ops {bound_ops_ms * 1e3:.2f} us); "
+        f"class-weighted f32 ops without FMA {bound_ops_ms * 1e3:.2f} us; "
+        f"earlier runs' bound, 117 ops a pixel at the FMA-counted rate: "
+        f"{bound_117_ms * 1e3:.2f} us); "
         f"sweep + pack {sweep_ms:.3f} ms; shadow volume {shadow_s:.3f} s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("timing", f"warp_frame pixels: {n_shaded} shaded, of which "
         f"{n_back} ambient-coloured (back-facing, at most), "
         f"{WIDTH * HEIGHT - n_shaded} stop at the texel; class-weighted "
-        f"operations {class_ops} ({class_ops / PEAK_F32_S * 1e6:.2f} us at "
-        f"the f32 rate; for reading only, the bound stays "
-        f"{WARP_OPS_PER_PIXEL} a pixel)")
+        f"operations {class_ops} ({bound_ops_ms * 1e3:.2f} us at the f32 "
+        f"rate without FMA, {class_ops / PEAK_F32_S * 1e6:.2f} us at the "
+        f"FMA-counted rate), against {ops_117} at {WARP_OPS_PER_PIXEL} a "
+        f"pixel")
 
     # 7. first hit: sweep_first_hit through the warp_lookup kernel
     wk = warp_kernel
@@ -1027,10 +1208,12 @@ def main() -> int:
     for name, (pw, ph, pc) in {"sweep_first_hit": (240, 136, bench_camera()),
                                "fast_exact_first_hit": (480, 270,
                                                         exact_camera())}.items():
+        # the headline's aspect, as bench.py's parity line (480 / 270 is
+        # the same)
         o, d = generate_rays(pw, ph, pc.get_pos(), pc.get_view(), 45.0,
-                             pw / ph, device=dev)
+                             aspect, device=dev)
         ref = trace_octree(pyr, o, d, origin, vox)
-        args = (vol, origin, vox, pc.get_pos(), pc.get_view(), 45.0, pw / ph,
+        args = (vol, origin, vox, pc.get_pos(), pc.get_view(), 45.0, aspect,
                 pw, ph)
         if name == "sweep_first_hit":
             hit, t, _, _ = slab_sweep.sweep_first_hit(
@@ -1196,7 +1379,10 @@ def main() -> int:
     # 11. the warp experiments
     exp_rows = experiments(smi)
 
-    # 12. lines
+    # 12. the bench
+    bench_rec = run_bench_phase(checks_parity["sweep_first_hit"])
+
+    # 13. lines
     record = {"kernels": [{
         "name": "warp_frame",
         "route": "cuda",
@@ -1219,10 +1405,13 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "bound_share": bound_ms / (warp_dev_ms or warp_ms),
+        "bound_rule": "max(bytes at 3.35 TB/s, class-weighted ops at 33.5 "
+                      "TFLOP/s: the f32 rate without FMA)",
+        "bound_ms_117_per_pixel": bound_117_ms,
         "pixels_shaded": n_shaded,
         "pixels_shaded_ambient": n_back,
         "class_weighted_ops": class_ops,
-        "class_weighted_ops_ms": class_ops / PEAK_F32_S * 1e3,
+        "class_weighted_ops_ms": bound_ops_ms,
         "ptxas": kernel_resources(ptxas.get("warp_frame", {}),
                                   "warp_frame_kernel"),
         "library_ms": None,
@@ -1271,7 +1460,7 @@ def main() -> int:
         "exact_mrays_per_s": exact_mrays, "exact_stage_ms": stage_ms,
         "exact_stats": estats, "exact_profiled_wall_ms": ewall,
         "exact_device_busy_ms": ebusy if eper else None,
-        "parity": checks_parity, "card": smi}
+        "parity": checks_parity, "bench": bench_rec, "card": smi}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -78,14 +78,23 @@ def _check_two_pass(t2: torch.Tensor, iustar: torch.Tensor,
                          f"share H and device")
 
 
-def _pass2(m: torch.Tensor, iv: torch.Tensor, win: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel 4 (pass 2), unchecked."""
+def pass2_vmin(iv: torch.Tensor, v: int, win: int) -> torch.Tensor:
+    """Each pixel's ``vmin`` under pass 2's rule: ``clip(min, 0, v -
+    win)`` over its tile of 8 x by 128 y, ``iv`` padded with zeros to a
+    multiple of 128 rows (so a tile that reaches past the last row takes
+    0)."""
     h, w = iv.shape
-    v = m.shape[1]
     hp = -(-h // 128) * 128
     ivp = torch.zeros((hp, w), dtype=iv.dtype, device=iv.device)
     ivp[:h] = iv
-    vmin = tile_min(ivp, 128, 8)[:h].clamp(0, v - win)
+    return tile_min(ivp, 128, 8)[:h].clamp(0, v - win)
+
+
+def _pass2(m: torch.Tensor, iv: torch.Tensor, win: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel 4 (pass 2), unchecked."""
+    h = iv.shape[0]
+    v = m.shape[1]
+    vmin = pass2_vmin(iv, v, win)
     rel = iv.long() - vmin.long()
     inwin = (rel >= 0) & (rel < win)
     rows = torch.arange(h, device=iv.device)[:, None]

@@ -9,8 +9,8 @@
 //      _k_twload and _k_select (ablate_launch);
 //   3. row_window_kernel: tools/exp_warp_kernel.py _warp_kernel and
 //      tools/exp_warp2pass.py _pass1_kernel (row_window_launch);
-//   4. col_window_kernel: tools/exp_warp2pass.py _pass2_kernel
-//      (col_window_launch).
+//   4. col_window_vector_kernel, and col_window_kernel as its general form:
+//      tools/exp_warp2pass.py _pass2_kernel (col_window_launch).
 //
 // Every TPU kernel reaches a per-pixel texel through MXU machinery (one-hot
 // bf16 contractions over 128-lane groups, a select by a second product or a
@@ -44,7 +44,8 @@
 // the table is read at most once (4.2 MB at 1024 x 1024, in bf16 hi/lo or
 // f32, L2-resident in the 50 MB L2). At 1920 x 1088 kernel 1 moves 8 bytes
 // a pixel plus its distinct texels (about 5.0 us at 3.35 TB/s), kernel 3
-// 12 bytes a pixel plus its texels (about 7.5 us); a frame's index field
+// 12 bytes a pixel plus its texels (about 7.5 us), kernel 4 8 bytes a pixel
+// plus its distinct texels of M (about 5.0-6.3 us); a frame's index field
 // is new on every frame, so it comes from device memory, not from L2.
 //
 // Kernels 1 and 3, the gathers, are built for Hopper:
@@ -76,9 +77,19 @@
 // is the planar t_hl [2 TH, TW]: a repack on every call moves 4 MB more
 // than it saves, and a packed copy cached against the tensor goes stale
 // when the tensor is edited in place.
-// Kernels 2 and 4 keep the first port's form: one block per tile, the
-// tile's index field read twice (the min, then the values; the second read
-// hits L1/L2), one texel load per pixel.
+// Kernel 4, the column-window select, is built the same way, transposed: a
+// compile-time tile of 8 x by 128 y, a thread's four x-neighbours in one
+// row read as one 16-byte load (a warp reads 16 rows of 32 bytes, whole
+// sectors, since x0 % 8 == 0 and W % 8 == 0), the min by __reduce_min_sync
+// and block_min_once, four texel loads in flight, one 16-byte store. A tile
+// that reaches past the image's last row takes vmin = 0 with no min and no
+// barrier: its padded zero indices take part in the min, so the min is at
+// most 0 and clip(min, 0, V-win) is 0 whatever the field holds, exactly.
+// The first port's col_window_kernel stays as kernel 4's general form, for
+// an index field that is not 16-byte aligned.
+// Kernel 2 keeps the first port's form: one block per tile, the tile's
+// index field read twice (the min, then the values; the second read hits
+// L1/L2), one texel load per pixel.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -112,19 +123,23 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-// Block-wide min with one barrier: the warp's min by __reduce_min_sync, one
-// slot per warp in `slots` (16-byte aligned), then every thread reads the
-// eight slots as two 16-byte words. A caller that takes another min before
-// its next barrier passes other slots.
-static_assert(kWarps == 8, "block_min_once reads eight slots");
+// Block-wide min with one barrier over a block of kW warps: the warp's min
+// by __reduce_min_sync, one slot per warp in `slots` (16-byte aligned),
+// then every thread reads the kW slots as kW / 4 16-byte words. A caller
+// that takes another min before its next barrier passes other slots.
+template <int kW = kWarps>
 __device__ __forceinline__ int block_min_once(int v, int* slots) {
+  static_assert(kW % 4 == 0, "whole 16-byte words of slots");
   v = __reduce_min_sync(0xffffffffu, v);
   if ((threadIdx.x & 31) == 0) slots[threadIdx.x >> 5] = v;
   __syncthreads();
-  const int4 a = reinterpret_cast<const int4*>(slots)[0];
-  const int4 b = reinterpret_cast<const int4*>(slots)[1];
-  return min(min(min(a.x, a.y), min(a.z, a.w)),
-             min(min(b.x, b.y), min(b.z, b.w)));
+  int m = INT_MAX;
+#pragma unroll
+  for (int i = 0; i < kW / 4; ++i) {
+    const int4 a = reinterpret_cast<const int4*>(slots)[i];
+    m = min(m, min(min(a.x, a.y), min(a.z, a.w)));
+  }
+  return m;
 }
 
 // The pixels one thread holds of a tile whose top-left pixel is (y0, x0).
@@ -401,8 +416,75 @@ __global__ void __launch_bounds__(kThreads) col_window_kernel(
   }
 }
 
+// 4, vector form: the same rule on one 8 x 128 (x by y) tile per block of
+// 1024 / kPx threads, kPx pixels a thread as kPx / 4 runs of four
+// x-neighbours in one row. Run g of thread i covers row
+// y0 + (i >> 1) + g * kRows, columns x0 + 4 (i & 1) + 0..3. Needs width % 8
+// == 0 and 16-byte aligned col_idx and out; offsets are 32-bit (the wrapper
+// checks that M and the image hold fewer than 2^31 elements).
+template <int kPx>
+__global__ void __launch_bounds__(1024 / kPx) col_window_vector_kernel(
+    const float* __restrict__ m_rows, int height, int mv,
+    const int32_t* __restrict__ col_idx, float* __restrict__ out, int width,
+    int win) {
+  constexpr int kThr = 1024 / kPx, kRuns = kPx / 4, kRows = kThr / 2;
+  __shared__ __align__(16) int slots[kThr / 32];
+  const int y0 = blockIdx.y * 128;
+  const int r = y0 + (threadIdx.x >> 1);
+  const int c = blockIdx.x * 8 + 4 * (threadIdx.x & 1);
+  int v[kPx];
+  int vmin = 0;   // a tile that reaches past the last row: exactly 0
+  if (y0 + 128 <= height) {
+    int m = INT_MAX;
+#pragma unroll
+    for (int g = 0; g < kRuns; ++g) {
+      const int4 t = __ldg(
+          reinterpret_cast<const int4*>(col_idx + (r + g * kRows) * width + c));
+      v[4 * g] = t.x;
+      v[4 * g + 1] = t.y;
+      v[4 * g + 2] = t.z;
+      v[4 * g + 3] = t.w;
+      m = min(m, min(min(t.x, t.y), min(t.z, t.w)));
+    }
+    vmin = clampi(block_min_once<kThr / 32>(m, slots), 0, mv - win);
+  } else {
+#pragma unroll
+    for (int g = 0; g < kRuns; ++g) {
+      int4 t = make_int4(-1, -1, -1, -1);   // a row past the image: no pixel
+      if (r + g * kRows < height)
+        t = __ldg(reinterpret_cast<const int4*>(
+            col_idx + (r + g * kRows) * width + c));
+      v[4 * g] = t.x;
+      v[4 * g + 1] = t.y;
+      v[4 * g + 2] = t.z;
+      v[4 * g + 3] = t.w;
+    }
+  }
+  float tex[kPx];
+  bool inwin[kPx];
+#pragma unroll
+  for (int i = 0; i < kPx; ++i) {
+    // exact: vmin <= v or vmin == 0; an in-window v is < vmin + win <= mv
+    const int rel = v[i] - vmin;
+    inwin[i] = rel >= 0 && rel < win;
+    tex[i] = __ldg(m_rows + (inwin[i] ? (r + (i / 4) * kRows) * mv + v[i]
+                                      : 0));
+  }
+#pragma unroll
+  for (int g = 0; g < kRuns; ++g) {
+    if (r + g * kRows >= height) continue;
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[j] = inwin[4 * g + j] ? __fadd_rn(0.0f, tex[4 * g + j]) : 0.0f;
+    *reinterpret_cast<float4*>(out + (r + g * kRows) * width + c) =
+        make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
 // The instantiation forms the wrappers choose between (trace/exp_warp.py).
-constexpr int kFormGeneral = 0, kFormVector = 1;
+// kFormVector8 is kernel 4's vector form at eight pixels a thread.
+constexpr int kFormGeneral = 0, kFormVector = 1, kFormVector8 = 2;
 
 template <int TY, int TX>
 int onehot_launch(const uint16_t* t_hl, int th, int tw, const int32_t* lin,
@@ -487,14 +569,30 @@ extern "C" int row_window_launch(const float* table, int th, int tc,
 }
 
 // `m_rows` f32 [height, mv]; `col_idx`, `out` [height, width] with
-// width % 8 == 0.
+// width % 8 == 0. The vector forms refuse a col_idx or out that is not
+// 16-byte aligned.
 extern "C" int col_window_launch(const float* m_rows, int mv,
                                  const int32_t* col_idx, float* out,
-                                 int height, int width, int win,
+                                 int height, int width, int win, int form,
                                  void* stream) {
   if (height <= 0 || width <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid(width / 8, (height + 127) / 128);
-  col_window_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      m_rows, height, mv, col_idx, out, width, win);
+  if (form == kFormGeneral) {
+    col_window_kernel<<<grid, kThreads, 0, s>>>(m_rows, height, mv, col_idx,
+                                                out, width, win);
+    return (int)cudaGetLastError();
+  }
+  if (width % 8 != 0
+      || ((uintptr_t)col_idx | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (form == kFormVector)
+    col_window_vector_kernel<4><<<grid, 256, 0, s>>>(m_rows, height, mv,
+                                                     col_idx, out, width, win);
+  else if (form == kFormVector8)
+    col_window_vector_kernel<8><<<grid, 128, 0, s>>>(m_rows, height, mv,
+                                                     col_idx, out, width, win);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

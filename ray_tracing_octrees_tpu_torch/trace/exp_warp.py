@@ -7,12 +7,12 @@ tensors calls one launcher here and counts the launch. A launcher takes
 checked, contiguous CUDA tensors, allocates the output, launches on the
 current stream and raises if the launch fails. There is no fallback.
 
-Kernels 1 and 3 come in forms (:func:`form`): the tile's own
+Kernels 1, 3 and 4 come in forms (:func:`form`): the tile's own
 instantiation, which reads 16-byte runs of the index fields, where the
 tile has one and every index field is 16-byte aligned (the output is a
-fresh allocation, which is); else the general instantiation. Both are
-kernels of the source, and :data:`FORM_LAUNCHES` counts each form's
-launches.
+fresh allocation, which is); else the general instantiation (for kernel
+4, the first port's kernel). Both are kernels of the source, and
+:data:`FORM_LAUNCHES` counts each form's launches.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ ONEHOT_TILES = ((8, 128), (16, 128), (32, 128), (16, 256))
 GENERAL_MAX_PX = 256 * 16
 _FORM_CODE = {"general": 0, "vector": 1}
 FORM_LAUNCHES: Dict[str, int] = {
-    f"{k} {f}": 0 for k in ("onehot_window", "row_window")
+    f"{k} {f}": 0 for k in ("onehot_window", "row_window", "col_window")
     for f in _FORM_CODE}
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
@@ -42,7 +42,7 @@ _ARGTYPES = {
     "row_window_launch": [_c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
                           _c_int, _c_int, _c_int, _c_int, _c_ptr],
     "col_window_launch": [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int,
-                          _c_int, _c_ptr],
+                          _c_int, _c_int, _c_ptr],
 }
 
 
@@ -65,7 +65,7 @@ def _call(entry: str, like: torch.Tensor, shape, *args) -> torch.Tensor:
 
 
 def form(instantiated: bool, *tensors: torch.Tensor) -> str:
-    """The form of kernel 1 or 3 for a tile (``instantiated``: it has its
+    """The form of kernel 1, 3 or 4 for a tile (``instantiated``: it has its
     own instantiation) and the index fields ``tensors``: "vector" where
     every one is 16-byte aligned, else "general"."""
     aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
@@ -73,7 +73,8 @@ def form(instantiated: bool, *tensors: torch.Tensor) -> str:
 
 
 def _check_32bit(**tensors: torch.Tensor) -> None:
-    """Kernels 1 and 3 index with 32-bit offsets."""
+    """Kernels 1 and 3, and kernel 4's vector form, index with 32-bit
+    offsets."""
     for name, t in tensors.items():
         if t.numel() >= 2 ** 31:
             raise ValueError(f"{name} has {t.numel()} elements; the kernel "
@@ -127,5 +128,7 @@ def col_window(m_rows: torch.Tensor, col_idx: torch.Tensor,
                win: int) -> torch.Tensor:
     """Kernel 4 on f32 ``m_rows`` [H, V] and int32 ``col_idx`` [H, W]."""
     h, w = col_idx.shape
-    return _call("col_window_launch", col_idx, (h, w), m_rows,
-                 m_rows.shape[1], col_idx, None, h, w, win)
+    _check_32bit(m_rows=m_rows, col_idx=col_idx)
+    return _launch_form("col_window", "col_window_launch",
+                        form(True, col_idx), col_idx, (h, w), m_rows,
+                        m_rows.shape[1], col_idx, None, h, w, win)

@@ -304,9 +304,9 @@ def _hold_cases(case_list, rows):
 @pytest.mark.parametrize("row", [4, 5, 6, 7, 8, 9])
 def test_exp_warp_kernels_match_plain_on_edge_fields(exp_edge, row):
     """Windows that clamp, indices past the table, all-invalid tiles,
-    -0.0 texels, H % 128 != 0 for the two-pass warp, index fields at a
-    storage offset, a tile count of 45 and a tile of no instantiation:
-    every set of tools/cases.py's edge_inputs."""
+    -0.0 texels, H % 128 != 0 and H % 128 == 0 for the two-pass warp,
+    index fields at a storage offset, a tile count of 45 and a tile of no
+    instantiation: every set of tools/cases.py's edge_inputs."""
     from ray_tracing_octrees_tpu_torch.tools import cases, exp_warp2pass
 
     assert sum(_hold_cases(cases.kernel_cases(**kw), {row})
@@ -323,11 +323,13 @@ def test_exp_warp_kernels_match_plain_on_edge_fields(exp_edge, row):
             assert bool((ref != 0).any())
 
 
-# the form each edge set's one-hot cases (kernel 1) and warp_pallas /
-# warp_pass1 cases (kernel 3) launch: the tile's own instantiation unless
-# the tile has none or the index fields are not 16-byte aligned
+# the form each edge set's one-hot cases (kernel 1), warp_pallas /
+# warp_pass1 cases (kernel 3) and warp_pass2 cases (kernel 4) launch: the
+# tile's own instantiation unless the tile has none or the index fields
+# are not 16-byte aligned
 EDGE_FORMS = {"edge fields": "vector", "offset views": "general",
-              "72x640": "vector", "invalid 32x128 tiles": "vector"}
+              "72x640": "vector", "invalid 32x128 tiles": "vector",
+              "256x512 unpadded": "vector"}
 
 
 @pytest.mark.parametrize("label", list(EDGE_FORMS))
@@ -338,9 +340,10 @@ def test_exp_warp_forms_on_edge_fields(exp_edge, label):
     from ray_tracing_octrees_tpu_torch.trace import exp_warp
 
     for row, name, fn, plain, args in cases.kernel_cases(**exp_edge[label]):
-        if row not in (4, 6, 7, 8, 9) or name == "warp_pass2":
+        if row not in (4, 6, 7, 8, 9):
             continue
-        kernel = "row_window" if row in (6, 9) else "onehot_window"
+        kernel = ("col_window" if name == "warp_pass2" else "row_window"
+                  if row in (6, 9) else "onehot_window")
         want = EDGE_FORMS[label]
         if row == 7 and "(8,64)" in name:
             want = "general"
@@ -351,6 +354,22 @@ def test_exp_warp_forms_on_edge_fields(exp_edge, label):
         assert got == {f"{kernel} {want}": 1}, (name, got)
         torch.cuda.synchronize()
         assert cases.bits_equal_share(out, plain(*args)) == 1.0, name
+
+
+def test_col_window_vector_form_refuses_unaligned_iv(exp_edge):
+    """Kernel 4's C entry refuses its vector form on an index field that
+    is not 16-byte aligned: the launch raises, nothing runs."""
+    from ray_tracing_octrees_tpu_torch.tools import cases, exp_warp2pass
+    from ray_tracing_octrees_tpu_torch.trace import exp_warp
+
+    e = exp_edge["edge fields"]
+    m = exp_warp2pass.warp_pass1_reference(e["t9"], e["iustar"])
+    iv = cases._offset_view(e["iv9"])
+    h, w = iv.shape
+    with pytest.raises(RuntimeError, match="col_window_launch failed"):
+        exp_warp._launch_form("col_window", "col_window_launch", "vector",
+                              iv, (h, w), m, m.shape[1], iv, None, h, w,
+                              exp_warp2pass.WIN2)
 
 
 def test_exp_warp_general_form_rejects_large_tiles(exp_edge):

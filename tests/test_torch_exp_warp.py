@@ -616,7 +616,8 @@ EDGE_ROWS = [("edge fields", 7)] + [
     (label, row) for label in ("offset views", "72x640")
     for row in (4, 5, 6, 7, 8, 9)
     if not (label == "72x640" and row == 8)] + [
-    ("invalid 32x128 tiles", row) for row in (4, 5, 7, 8)]
+    ("invalid 32x128 tiles", row) for row in (4, 5, 7, 8)] + [
+    ("256x512 unpadded", 9)]
 
 
 @pytest.mark.parametrize("label,row", EDGE_ROWS)
@@ -680,3 +681,52 @@ def test_kernel_32bit_offsets_checked():
     with pytest.raises(ValueError):
         t_ew._check_32bit(lin=torch.zeros(1, dtype=torch.int32).expand(
             2 ** 31))
+
+
+@pytest.mark.parametrize("seed,h", [(0, 40), (1, 136), (2, 200), (3, 296)])
+def test_pass2_padded_tiles_take_vmin_zero(seed, h):
+    """Kernel 4's vector form gives a tile that reaches past the last row
+    vmin = 0 without taking its min: exact, since the zeros that pad y to
+    a multiple of 128 take part in the min. On random fields (H % 128 !=
+    0, indices below 0 and at or past V) every padded tile's vmin in
+    the plain version is 0, whole tiles have theirs, and the plain
+    version equals the interpreted Pallas body."""
+    w, v, win = 64, 512, t_w2.WIN2
+    rng = np.random.default_rng(seed)
+    iv = rng.integers(150, v + 60, (h, w))
+    bad = rng.random((h, w)) < 0.002
+    iv[bad] = rng.choice(np.array([-1, -(1 << 31), v, (1 << 31) - 1]),
+                         bad.sum())
+    iv = torch.as_tensor(iv.astype(np.int32))
+    vmin = t_w2.pass2_vmin(iv, v, win)
+    full = (h // 128) * 128
+    assert bool((vmin[full:] == 0).all())
+    tiles = iv[:full].reshape(-1, 128, w // 8, 8).amin(dim=(1, 3))
+    want = tiles.clamp(0, v - win).repeat_interleave(128, 0) \
+        .repeat_interleave(8, 1)
+    assert torch.equal(vmin[:full], want)
+    assert h < 128 or bool((want > 0).any())
+    m = rng.uniform(-4, 4, (h, v)).astype(np.float32)
+    m[rng.random((h, v)) < 0.1] = -0.0
+    out = t_w2.warp_pass2(torch.as_tensor(m), iv)
+    assert _bits_equal(out.numpy(), _interp_pass2(m, iv.numpy()))
+
+
+@pytest.mark.parametrize("label", ["edge fields", "offset views", "72x640",
+                                   "256x512 unpadded"])
+def test_col_window_form_choice(edge_sets, label):
+    """Kernel 4 takes its vector form on an aligned ``iv`` and the first
+    port's kernel, its general form, on one at a storage offset."""
+    iv = edge_sets[label]["iv9"]
+    want = "general" if label == "offset views" else "vector"
+    assert t_ew.form(True, iv) == want
+    assert t_ew.form(True, t_cases._offset_view(iv)) == "general"
+
+
+def test_col_window_32bit_offsets_checked():
+    """Kernel 4 indexes with 32-bit offsets: an ``M`` of 2^31 elements is
+    refused before any launch."""
+    iv = torch.zeros((8, 8), dtype=torch.int32)
+    m = torch.zeros(1, dtype=torch.float32).expand(8, 2 ** 28)
+    with pytest.raises(ValueError, match="2\\^31"):
+        t_ew.col_window(m, iv, t_w2.WIN2)

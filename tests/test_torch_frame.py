@@ -132,7 +132,7 @@ def test_layouts_reused_across_frames(scene):
 def _entry_points():
     from ray_tracing_octrees_tpu_torch.core import cache, grid
     from ray_tracing_octrees_tpu_torch.render import camera
-    from ray_tracing_octrees_tpu_torch import convert
+    from ray_tracing_octrees_tpu_torch import bench, convert
     from ray_tracing_octrees_tpu_torch.trace import fast_exact
 
     vol = np.zeros((8, 8, 8), np.float32)
@@ -161,6 +161,10 @@ def _entry_points():
             45.0, 1.0, 16, 16),
         "pyramid_from_numpy": lambda: convert.pyramid_from_numpy(
             [vol.astype(np.uint8)]),
+        "bench.run_bench": lambda: bench.run_bench(
+            scene="sphere", width=16, height=16, iters=1, dim=8),
+        "bench.main": lambda: bench.main(
+            ["--scene", "sphere", "--dim", "8", "--out", "record.json"]),
         **{f"tools.{name}.run": _driver_run(name) for name in (
             "exp_onehot_warp", "exp_warp_ablate", "exp_warp_tune",
             "exp_warp_tune2", "exp_warp_kernel", "exp_warp2pass")},
@@ -201,7 +205,8 @@ def test_port_imports_no_jax():
             "ray_tracing_octrees_tpu_torch.tools.cases, "
             "ray_tracing_octrees_tpu_torch.tools.exp_warp2pass, "
             "ray_tracing_octrees_tpu_torch.tools.exp_warp_tune2, "
-            "ray_tracing_octrees_tpu_torch.tools.exp_warp_ablate; "
+            "ray_tracing_octrees_tpu_torch.tools.exp_warp_ablate, "
+            "ray_tracing_octrees_tpu_torch.bench; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ray_tracing_octrees_tpu' "
             "or m.startswith('ray_tracing_octrees_tpu.')]; "
