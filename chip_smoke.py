@@ -396,9 +396,12 @@ EXP_ROWS = {
     9: ("tools/exp_warp2pass.py:34", ("row_window_kernel",
                                       "col_window")),
 }
-# kernel 4's forms, by the code col_window_launch takes; "vector8" (eight
-# pixels a thread) is timed beside them and never chosen by the wrapper
-COL_FORMS = {"general": 0, "vector": 1, "vector8": 2}
+# kernel 4's forms, by the code col_window_launch takes: "vector" is one
+# tile a block at 4 pixels a thread; the others, timed beside it and never
+# chosen by the wrapper, are the vector form at other tiles a block and
+# pixels a thread
+COL_FORMS = {"general": 0, "vector": 1, "1 tile 8 px": 2, "2 tiles 4 px": 3,
+             "4 tiles 4 px": 4, "4 tiles 8 px": 5, "4 tiles 16 px": 6}
 EXP_LIBRARY = "torch.take of the flat index (equal where the window covers)"
 
 
@@ -599,29 +602,31 @@ def experiments(smi: str) -> list:
         return sum(per.values()), per
 
     # kernel 4's forms on the row 9 driver's M and iv, each bitwise against
-    # the plain version, then timed in turns (general, vector, vector8,
-    # vector8, vector, general), warm and cold; launched through the entry
-    # point with a form code, so FORM_LAUNCHES does not count them
+    # the plain version, then timed in turns (each form in COL_FORMS' order,
+    # then in reverse), warm and cold; launched through the entry point with
+    # a form code, so FORM_LAUNCHES does not count them
+    def col_form(code, m):
+        return lambda iv: exp_warp._call(
+            "col_window_launch", iv, tuple(iv.shape), m, m.shape[1], iv,
+            None, *iv.shape, exp_warp2pass.WIN2, code)
+
+    for label, kw in inputs.items():
+        if "iv9" not in kw or label == "edge set offset views":
+            continue
+        m = exp_warp2pass.warp_pass1_reference(kw["t9"], kw["iustar"])
+        ref = exp_warp2pass.warp_pass2_reference(m, kw["iv9"])
+        for f, code in COL_FORMS.items():
+            out = col_form(code, m)(kw["iv9"])
+            torch.cuda.synchronize()
+            if cases.bits_equal_share(out, ref) != 1.0:
+                raise RuntimeError(f"kernel 4's {f} form differs from its "
+                                   f"plain version on the {label}")
     m9 = exp_warp2pass.warp_pass1_reference(r9["table"], r9["iustar"])
     iv9 = r9["iv"]
-    h9, w9 = iv9.shape
-
-    def col_form(code):
-        return lambda iv: exp_warp._call(
-            "col_window_launch", iv, (h9, w9), m9, m9.shape[1], iv, None, h9,
-            w9, exp_warp2pass.WIN2, code)
-
-    ref9 = exp_warp2pass.warp_pass2_reference(m9, iv9)
-    for f, code in COL_FORMS.items():
-        out = col_form(code)(iv9)
-        torch.cuda.synchronize()
-        if cases.bits_equal_share(out, ref9) != 1.0:
-            raise RuntimeError(f"kernel 4's {f} form differs from its plain "
-                               f"version on the row 9 driver's inputs")
     ivs = [(iv9.clone(),) for _ in range(N_COLD)]
     col_turns = {}
     for f in list(COL_FORMS) + list(reversed(COL_FORMS)):
-        fn = col_form(COL_FORMS[f])
+        fn = col_form(COL_FORMS[f], m9)
         warm = device_ms(lambda: fn(iv9), ("col_window",))[0]
         cold = device_ms(rotating(fn, ivs), ("col_window",))[0]
         col_turns.setdefault(f, []).append((warm, cold))

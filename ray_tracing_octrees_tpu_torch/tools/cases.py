@@ -158,11 +158,12 @@ def edge_inputs(device, seed: int = 0) -> Dict[str, dict]:
     - "invalid 32x128 tiles": a 64 x 512 ``lin`` in which whole 32 x 128
       tiles are invalid beside valid ones: one of -1, one of int32's
       least value, one of several negative values;
-    - "256x512 unpadded": the two-pass warp at a height that is a
-      multiple of 128, so no tile of pass 2 is padded: ``iv`` in
-      [100, 430) (windows that start above 0 and leave pixels out), a
-      tile whose window clips at ``V - 256``, one holding a negative
-      index and one holding indices past ``V``.
+    - "256x520 unpadded": the two-pass warp at a height that is a
+      multiple of 128, so no tile of pass 2 is padded, and 65 tiles
+      across (an odd count): 256 x 512 ``iustar`` and a 256 x 520 ``iv``
+      in [100, 430) (windows that start above 0 and leave pixels out),
+      with a tile whose window clips at ``V - 256``, one holding a
+      negative index and one holding indices past ``V``.
     """
     rng = np.random.default_rng(seed)
     t = rng.uniform(-512, 512, (TH, TW)).astype(np.float32)
@@ -209,10 +210,10 @@ def edge_inputs(device, seed: int = 0) -> Dict[str, dict]:
     lin32[32:, :128] = np.iinfo(np.int32).min
     lin32[32:, 384:] = rng.choice(np.array([-1, -1024, -(1 << 30)],
                                            np.int32), (32, 128))
-    h8 = 256
+    h8, w8 = 256, 520
     y8 = np.arange(h8)[:, None]
-    x8 = np.arange(v9)[None, :]
-    iv8 = 100 + (x8 * 2 + y8 * 3 + rng.integers(0, 3, (h8, v9))) % 330
+    x8 = np.arange(w8)[None, :]
+    iv8 = 100 + (x8 * 2 + y8 * 3 + rng.integers(0, 3, (h8, w8))) % 330
     iv8[:128, 24:32] = v9 - 40 + (x8[:, 24:32] + y8[:128]) % 40
     iv8[5, 8] = -7
     iv8[130:140, 16:24] = v9 + 40
@@ -220,7 +221,7 @@ def edge_inputs(device, seed: int = 0) -> Dict[str, dict]:
     return {"edge fields": base, "offset views": offset, "72x640": small,
             "invalid 32x128 tiles": dict(t_hl=t_hl, lin=dev(lin32),
                                          tiles=tiles),
-            "256x512 unpadded": dict(t9=base["t9"], iustar=dev(ius8),
+            "256x520 unpadded": dict(t9=base["t9"], iustar=dev(ius8),
                                      iv9=dev(iv8, np.int32), tiles=tiles)}
 
 

@@ -123,23 +123,19 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-// Block-wide min with one barrier over a block of kW warps: the warp's min
-// by __reduce_min_sync, one slot per warp in `slots` (16-byte aligned),
-// then every thread reads the kW slots as kW / 4 16-byte words. A caller
-// that takes another min before its next barrier passes other slots.
-template <int kW = kWarps>
+// Block-wide min with one barrier: the warp's min by __reduce_min_sync, one
+// slot per warp in `slots` (16-byte aligned), then every thread reads the
+// eight slots as two 16-byte words. A caller that takes another min before
+// its next barrier passes other slots.
+static_assert(kWarps == 8, "block_min_once reads eight slots");
 __device__ __forceinline__ int block_min_once(int v, int* slots) {
-  static_assert(kW % 4 == 0, "whole 16-byte words of slots");
   v = __reduce_min_sync(0xffffffffu, v);
   if ((threadIdx.x & 31) == 0) slots[threadIdx.x >> 5] = v;
   __syncthreads();
-  int m = INT_MAX;
-#pragma unroll
-  for (int i = 0; i < kW / 4; ++i) {
-    const int4 a = reinterpret_cast<const int4*>(slots)[i];
-    m = min(m, min(min(a.x, a.y), min(a.z, a.w)));
-  }
-  return m;
+  const int4 a = reinterpret_cast<const int4*>(slots)[0];
+  const int4 b = reinterpret_cast<const int4*>(slots)[1];
+  return min(min(min(a.x, a.y), min(a.z, a.w)),
+             min(min(b.x, b.y), min(b.z, b.w)));
 }
 
 // The pixels one thread holds of a tile whose top-left pixel is (y0, x0).
@@ -416,49 +412,74 @@ __global__ void __launch_bounds__(kThreads) col_window_kernel(
   }
 }
 
-// 4, vector form: the same rule on one 8 x 128 (x by y) tile per block of
-// 1024 / kPx threads, kPx pixels a thread as kPx / 4 runs of four
-// x-neighbours in one row. Run g of thread i covers row
-// y0 + (i >> 1) + g * kRows, columns x0 + 4 (i & 1) + 0..3. Needs width % 8
-// == 0 and 16-byte aligned col_idx and out; offsets are 32-bit (the wrapper
-// checks that M and the image hold fewer than 2^31 elements).
-template <int kPx>
-__global__ void __launch_bounds__(1024 / kPx) col_window_vector_kernel(
-    const float* __restrict__ m_rows, int height, int mv,
-    const int32_t* __restrict__ col_idx, float* __restrict__ out, int width,
-    int win) {
-  constexpr int kThr = 1024 / kPx, kRuns = kPx / 4, kRows = kThr / 2;
-  __shared__ __align__(16) int slots[kThr / 32];
+// Kernel 4's block-wide mins, one per tile, with one barrier: tile t's min
+// over the threads whose `tile` is t, by __reduce_min_sync in each warp,
+// one slot per warp and tile, then every thread reads its tile's kW slots
+// as kW / 4 16-byte words.
+template <int kTiles, int kW>
+__device__ __forceinline__ int block_min_tiles(int v, int tile,
+                                               int (*slots)[kW]) {
+  static_assert(kW % 4 == 0, "whole 16-byte words of slots");
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+    const int m = __reduce_min_sync(0xffffffffu, tile == t ? v : INT_MAX);
+    if ((threadIdx.x & 31) == 0) slots[t][threadIdx.x >> 5] = m;
+  }
+  __syncthreads();
+  int m = INT_MAX;
+#pragma unroll
+  for (int i = 0; i < kW / 4; ++i) {
+    const int4 a = reinterpret_cast<const int4*>(slots[tile])[i];
+    m = min(m, min(min(a.x, a.y), min(a.z, a.w)));
+  }
+  return m;
+}
+
+// 4, vector form: the same rule on kTiles x-adjacent 8 x 128 (x by y) tiles
+// per block of 1024 kTiles / kPx threads, kPx pixels a thread as kPx / 4
+// runs of four x-neighbours in one row, so a warp reads and writes rows of
+// 32 kTiles bytes. Run g of thread i covers row y0 + i / kLanes + g kRows,
+// columns x0 + 4 (i % kLanes) + 0..3 (kLanes = 2 kTiles runs a row); its
+// tile is (i % kLanes) / 2, and a tile past the image's last column has no
+// pixels. Needs width % 8 == 0 and 16-byte aligned col_idx and out; offsets
+// are 32-bit (the wrapper checks that M and the image hold fewer than 2^31
+// elements).
+template <int kTiles, int kPx>
+__global__ void __launch_bounds__(1024 * kTiles / kPx)
+col_window_vector_kernel(const float* __restrict__ m_rows, int height,
+                         int mv, const int32_t* __restrict__ col_idx,
+                         float* __restrict__ out, int width, int win) {
+  constexpr int kThr = 1024 * kTiles / kPx, kRuns = kPx / 4;
+  constexpr int kLanes = 2 * kTiles, kRows = kThr / kLanes;
+  static_assert(32 % kLanes == 0, "a warp holds whole rows of the block");
+  __shared__ __align__(16) int slots[kTiles][kThr / 32];
   const int y0 = blockIdx.y * 128;
-  const int r = y0 + (threadIdx.x >> 1);
-  const int c = blockIdx.x * 8 + 4 * (threadIdx.x & 1);
+  const int run = threadIdx.x % kLanes;
+  const int r = y0 + threadIdx.x / kLanes;
+  const int c = blockIdx.x * 8 * kTiles + 4 * run;
+  const bool has = c < width;
   int v[kPx];
-  int vmin = 0;   // a tile that reaches past the last row: exactly 0
-  if (y0 + 128 <= height) {
+  // a tile that reaches past the last row: vmin exactly 0 (see the top)
+  const bool padded = y0 + 128 > height;
+#pragma unroll
+  for (int g = 0; g < kRuns; ++g) {
+    int4 t = make_int4(-1, -1, -1, -1);   // no pixel: outside every window
+    if (has && (!padded || r + g * kRows < height))
+      t = __ldg(reinterpret_cast<const int4*>(
+          col_idx + (r + g * kRows) * width + c));
+    v[4 * g] = t.x;
+    v[4 * g + 1] = t.y;
+    v[4 * g + 2] = t.z;
+    v[4 * g + 3] = t.w;
+  }
+  int vmin = 0;
+  if (!padded) {
     int m = INT_MAX;
 #pragma unroll
-    for (int g = 0; g < kRuns; ++g) {
-      const int4 t = __ldg(
-          reinterpret_cast<const int4*>(col_idx + (r + g * kRows) * width + c));
-      v[4 * g] = t.x;
-      v[4 * g + 1] = t.y;
-      v[4 * g + 2] = t.z;
-      v[4 * g + 3] = t.w;
-      m = min(m, min(min(t.x, t.y), min(t.z, t.w)));
-    }
-    vmin = clampi(block_min_once<kThr / 32>(m, slots), 0, mv - win);
-  } else {
-#pragma unroll
-    for (int g = 0; g < kRuns; ++g) {
-      int4 t = make_int4(-1, -1, -1, -1);   // a row past the image: no pixel
-      if (r + g * kRows < height)
-        t = __ldg(reinterpret_cast<const int4*>(
-            col_idx + (r + g * kRows) * width + c));
-      v[4 * g] = t.x;
-      v[4 * g + 1] = t.y;
-      v[4 * g + 2] = t.z;
-      v[4 * g + 3] = t.w;
-    }
+    for (int i = 0; i < kPx; ++i) m = min(m, v[i]);
+    vmin = clampi(block_min_tiles<kTiles, kThr / 32>(has ? m : INT_MAX,
+                                                     run / 2, slots),
+                  0, mv - win);
   }
   float tex[kPx];
   bool inwin[kPx];
@@ -472,7 +493,7 @@ __global__ void __launch_bounds__(1024 / kPx) col_window_vector_kernel(
   }
 #pragma unroll
   for (int g = 0; g < kRuns; ++g) {
-    if (r + g * kRows >= height) continue;
+    if (!has || r + g * kRows >= height) continue;
     float o[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -482,9 +503,22 @@ __global__ void __launch_bounds__(1024 / kPx) col_window_vector_kernel(
   }
 }
 
+template <int kTiles, int kPx>
+int col_vector_launch(const float* m_rows, int mv, const int32_t* col_idx,
+                      float* out, int height, int width, int win,
+                      cudaStream_t stream) {
+  const dim3 grid((width + 8 * kTiles - 1) / (8 * kTiles),
+                  (height + 127) / 128);
+  col_window_vector_kernel<kTiles, kPx>
+      <<<grid, 1024 * kTiles / kPx, 0, stream>>>(m_rows, height, mv,
+                                                 col_idx, out, width, win);
+  return (int)cudaGetLastError();
+}
+
 // The instantiation forms the wrappers choose between (trace/exp_warp.py).
-// kFormVector8 is kernel 4's vector form at eight pixels a thread.
-constexpr int kFormGeneral = 0, kFormVector = 1, kFormVector8 = 2;
+// Codes 2-6 are kernel 4's vector form at other (tiles a block, pixels a
+// thread), timed beside it: (1, 8), (2, 4), (4, 4), (4, 8), (4, 16).
+constexpr int kFormGeneral = 0, kFormVector = 1;
 
 template <int TY, int TX>
 int onehot_launch(const uint16_t* t_hl, int th, int tw, const int32_t* lin,
@@ -577,8 +611,8 @@ extern "C" int col_window_launch(const float* m_rows, int mv,
                                  void* stream) {
   if (height <= 0 || width <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(width / 8, (height + 127) / 128);
   if (form == kFormGeneral) {
+    const dim3 grid(width / 8, (height + 127) / 128);
     col_window_kernel<<<grid, kThreads, 0, s>>>(m_rows, height, mv, col_idx,
                                                 out, width, win);
     return (int)cudaGetLastError();
@@ -586,13 +620,16 @@ extern "C" int col_window_launch(const float* m_rows, int mv,
   if (width % 8 != 0
       || ((uintptr_t)col_idx | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  if (form == kFormVector)
-    col_window_vector_kernel<4><<<grid, 256, 0, s>>>(m_rows, height, mv,
-                                                     col_idx, out, width, win);
-  else if (form == kFormVector8)
-    col_window_vector_kernel<8><<<grid, 128, 0, s>>>(m_rows, height, mv,
-                                                     col_idx, out, width, win);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+#define COL(T, P) \
+  col_vector_launch<T, P>(m_rows, mv, col_idx, out, height, width, win, s)
+  switch (form) {
+    case kFormVector: return COL(1, 4);
+    case 2: return COL(1, 8);
+    case 3: return COL(2, 4);
+    case 4: return COL(4, 4);
+    case 5: return COL(4, 8);
+    case 6: return COL(4, 16);
+  }
+#undef COL
+  return (int)cudaErrorInvalidValue;
 }

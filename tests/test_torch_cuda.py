@@ -329,7 +329,7 @@ def test_exp_warp_kernels_match_plain_on_edge_fields(exp_edge, row):
 # are not 16-byte aligned
 EDGE_FORMS = {"edge fields": "vector", "offset views": "general",
               "72x640": "vector", "invalid 32x128 tiles": "vector",
-              "256x512 unpadded": "vector"}
+              "256x520 unpadded": "vector"}
 
 
 @pytest.mark.parametrize("label", list(EDGE_FORMS))

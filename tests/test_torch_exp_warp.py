@@ -617,7 +617,7 @@ EDGE_ROWS = [("edge fields", 7)] + [
     for row in (4, 5, 6, 7, 8, 9)
     if not (label == "72x640" and row == 8)] + [
     ("invalid 32x128 tiles", row) for row in (4, 5, 7, 8)] + [
-    ("256x512 unpadded", 9)]
+    ("256x520 unpadded", 9)]
 
 
 @pytest.mark.parametrize("label,row", EDGE_ROWS)
@@ -713,7 +713,7 @@ def test_pass2_padded_tiles_take_vmin_zero(seed, h):
 
 
 @pytest.mark.parametrize("label", ["edge fields", "offset views", "72x640",
-                                   "256x512 unpadded"])
+                                   "256x520 unpadded"])
 def test_col_window_form_choice(edge_sets, label):
     """Kernel 4 takes its vector form on an aligned ``iv`` and the first
     port's kernel, its general form, on one at a storage offset."""
