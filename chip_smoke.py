@@ -401,7 +401,8 @@ EXP_ROWS = {
 # chosen by the wrapper, are the vector form at other tiles a block and
 # pixels a thread
 COL_FORMS = {"general": 0, "vector": 1, "1 tile 8 px": 2, "2 tiles 4 px": 3,
-             "4 tiles 4 px": 4, "4 tiles 8 px": 5, "4 tiles 16 px": 6}
+             "4 tiles 4 px": 4, "4 tiles 8 px": 5, "4 tiles 16 px": 6,
+             "2 tiles 8 px": 7, "8 tiles 8 px": 8, "8 tiles 16 px": 9}
 EXP_LIBRARY = "torch.take of the flat index (equal where the window covers)"
 
 

@@ -516,8 +516,9 @@ int col_vector_launch(const float* m_rows, int mv, const int32_t* col_idx,
 }
 
 // The instantiation forms the wrappers choose between (trace/exp_warp.py).
-// Codes 2-6 are kernel 4's vector form at other (tiles a block, pixels a
-// thread), timed beside it: (1, 8), (2, 4), (4, 4), (4, 8), (4, 16).
+// Codes 2-9 are kernel 4's vector form at other (tiles a block, pixels a
+// thread), timed beside it: (1, 8), (2, 4), (4, 4), (4, 8), (4, 16),
+// (2, 8), (8, 8), (8, 16).
 constexpr int kFormGeneral = 0, kFormVector = 1;
 
 template <int TY, int TX>
@@ -629,6 +630,9 @@ extern "C" int col_window_launch(const float* m_rows, int mv,
     case 4: return COL(4, 4);
     case 5: return COL(4, 8);
     case 6: return COL(4, 16);
+    case 7: return COL(2, 8);
+    case 8: return COL(8, 8);
+    case 9: return COL(8, 16);
   }
 #undef COL
   return (int)cudaErrorInvalidValue;
