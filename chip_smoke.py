@@ -396,13 +396,8 @@ EXP_ROWS = {
     9: ("tools/exp_warp2pass.py:34", ("row_window_kernel",
                                       "col_window")),
 }
-# kernel 4's forms, by the code col_window_launch takes: "vector" is one
-# tile a block at 4 pixels a thread; the others, timed beside it and never
-# chosen by the wrapper, are the vector form at other tiles a block and
-# pixels a thread
-COL_FORMS = {"general": 0, "vector": 1, "1 tile 8 px": 2, "2 tiles 4 px": 3,
-             "4 tiles 4 px": 4, "4 tiles 8 px": 5, "4 tiles 16 px": 6,
-             "2 tiles 8 px": 7, "8 tiles 8 px": 8, "8 tiles 16 px": 9}
+# kernel 4's forms, by the code col_window_launch takes
+COL_FORMS = {"general": 0, "vector": 1}
 EXP_LIBRARY = "torch.take of the flat index (equal where the window covers)"
 
 

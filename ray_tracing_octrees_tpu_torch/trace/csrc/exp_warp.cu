@@ -77,16 +77,24 @@
 // is the planar t_hl [2 TH, TW]: a repack on every call moves 4 MB more
 // than it saves, and a packed copy cached against the tensor goes stale
 // when the tensor is edited in place.
-// Kernel 4, the column-window select, is built the same way, transposed: a
-// compile-time tile of 8 x by 128 y, a thread's four x-neighbours in one
-// row read as one 16-byte load (a warp reads 16 rows of 32 bytes, whole
-// sectors, since x0 % 8 == 0 and W % 8 == 0), the min by __reduce_min_sync
-// and block_min_once, four texel loads in flight, one 16-byte store. A tile
-// that reaches past the image's last row takes vmin = 0 with no min and no
-// barrier: its padded zero indices take part in the min, so the min is at
-// most 0 and clip(min, 0, V-win) is 0 whatever the field holds, exactly.
-// The first port's col_window_kernel stays as kernel 4's general form, for
-// an index field that is not 16-byte aligned.
+// Kernel 4, the column-window select, is built the same way, transposed.
+// Its tile, 8 x by 128 y, is 32 bytes wide, so a block takes four
+// x-adjacent tiles (32 columns by 128 rows, 512 threads) and a warp reads
+// and writes 4 rows of 128 bytes; a thread holds two runs of four
+// x-neighbours, each read as one 16-byte load, takes one min per tile by
+// __reduce_min_sync and one barrier, issues its eight texel loads of M
+// before the first add, and writes two 16-byte stores. A tile that reaches
+// past the image's last row takes vmin = 0 with no min and no barrier: its
+// padded zero indices take part in the min, so the min is at most 0 and
+// clip(min, 0, V-win) is 0 whatever the field holds, exactly. The first
+// port's col_window_kernel stays as kernel 4's general form, for an index
+// field that is not 16-byte aligned.
+//   - not taken, measured (PERF.md, in turns at 1920 x 1088, us warm /
+//     cold): one tile a block at 4 and 8 pixels a thread 8.1 / 9.2 and
+//     8.6 / 9.7 (a warp touches 16 rows of 128-byte lines at each index
+//     load, store and texel load), 2 tiles 5.4-5.9 / 7.0-7.3, 4 tiles at
+//     4 and 16 pixels 8.5 / 9.8 (1024-thread blocks) and 5.2 / 6.7,
+//     8 tiles 5.6-8.1 / 7.0-9.3; shipped, 4 tiles at 8 pixels, 4.9 / 6.5.
 // Kernel 2 keeps the first port's form: one block per tile, the tile's
 // index field read twice (the min, then the values; the second read hits
 // L1/L2), one texel load per pixel.
@@ -412,61 +420,66 @@ __global__ void __launch_bounds__(kThreads) col_window_kernel(
   }
 }
 
+// Kernel 4's vector form: kColTiles x-adjacent 8 x 128 (x by y) tiles a
+// block, two runs of four x-neighbours a thread (PERF.md: the fastest of
+// 1, 2, 4 and 8 tiles a block at 4, 8 and 16 pixels a thread).
+constexpr int kColTiles = 4;
+constexpr int kColRuns = 2;
+constexpr int kColPx = 4 * kColRuns;
+constexpr int kColThreads = 1024 * kColTiles / kColPx;
+constexpr int kColLanes = 2 * kColTiles;            // runs in a block row
+constexpr int kColRows = kColThreads / kColLanes;   // rows a run apart
+constexpr int kColWarps = kColThreads / 32;
+static_assert(32 % kColLanes == 0, "a warp holds whole rows of the block");
+static_assert(kColWarps % 4 == 0, "whole 16-byte words of slots");
+
 // Kernel 4's block-wide mins, one per tile, with one barrier: tile t's min
 // over the threads whose `tile` is t, by __reduce_min_sync in each warp,
-// one slot per warp and tile, then every thread reads its tile's kW slots
-// as kW / 4 16-byte words.
-template <int kTiles, int kW>
-__device__ __forceinline__ int block_min_tiles(int v, int tile,
-                                               int (*slots)[kW]) {
-  static_assert(kW % 4 == 0, "whole 16-byte words of slots");
+// one slot per warp and tile, then every thread reads its tile's slots as
+// 16-byte words.
+__device__ __forceinline__ int block_min_tiles(
+    int v, int tile, int (*slots)[kColWarps]) {
 #pragma unroll
-  for (int t = 0; t < kTiles; ++t) {
+  for (int t = 0; t < kColTiles; ++t) {
     const int m = __reduce_min_sync(0xffffffffu, tile == t ? v : INT_MAX);
     if ((threadIdx.x & 31) == 0) slots[t][threadIdx.x >> 5] = m;
   }
   __syncthreads();
   int m = INT_MAX;
 #pragma unroll
-  for (int i = 0; i < kW / 4; ++i) {
+  for (int i = 0; i < kColWarps / 4; ++i) {
     const int4 a = reinterpret_cast<const int4*>(slots[tile])[i];
     m = min(m, min(min(a.x, a.y), min(a.z, a.w)));
   }
   return m;
 }
 
-// 4, vector form: the same rule on kTiles x-adjacent 8 x 128 (x by y) tiles
-// per block of 1024 kTiles / kPx threads, kPx pixels a thread as kPx / 4
-// runs of four x-neighbours in one row, so a warp reads and writes rows of
-// 32 kTiles bytes. Run g of thread i covers row y0 + i / kLanes + g kRows,
-// columns x0 + 4 (i % kLanes) + 0..3 (kLanes = 2 kTiles runs a row); its
-// tile is (i % kLanes) / 2, and a tile past the image's last column has no
-// pixels. Needs width % 8 == 0 and 16-byte aligned col_idx and out; offsets
-// are 32-bit (the wrapper checks that M and the image hold fewer than 2^31
-// elements).
-template <int kTiles, int kPx>
-__global__ void __launch_bounds__(1024 * kTiles / kPx)
-col_window_vector_kernel(const float* __restrict__ m_rows, int height,
-                         int mv, const int32_t* __restrict__ col_idx,
-                         float* __restrict__ out, int width, int win) {
-  constexpr int kThr = 1024 * kTiles / kPx, kRuns = kPx / 4;
-  constexpr int kLanes = 2 * kTiles, kRows = kThr / kLanes;
-  static_assert(32 % kLanes == 0, "a warp holds whole rows of the block");
-  __shared__ __align__(16) int slots[kTiles][kThr / 32];
+// 4, vector form: the same rule, a warp reading and writing rows of
+// 32 kColTiles bytes. Run g of thread i covers row
+// y0 + i / kColLanes + g kColRows, columns x0 + 4 (i % kColLanes) + 0..3;
+// its tile is (i % kColLanes) / 2, and a tile past the image's last column
+// has no pixels. Needs width % 8 == 0 and 16-byte aligned col_idx and out;
+// offsets are 32-bit (the wrapper checks that M and the image hold fewer
+// than 2^31 elements). Grid (ceil(W / (8 kColTiles)), ceil(H / 128)).
+__global__ void __launch_bounds__(kColThreads) col_window_vector_kernel(
+    const float* __restrict__ m_rows, int height, int mv,
+    const int32_t* __restrict__ col_idx, float* __restrict__ out, int width,
+    int win) {
+  __shared__ __align__(16) int slots[kColTiles][kColWarps];
   const int y0 = blockIdx.y * 128;
-  const int run = threadIdx.x % kLanes;
-  const int r = y0 + threadIdx.x / kLanes;
-  const int c = blockIdx.x * 8 * kTiles + 4 * run;
+  const int run = threadIdx.x % kColLanes;
+  const int r = y0 + threadIdx.x / kColLanes;
+  const int c = blockIdx.x * 8 * kColTiles + 4 * run;
   const bool has = c < width;
-  int v[kPx];
   // a tile that reaches past the last row: vmin exactly 0 (see the top)
   const bool padded = y0 + 128 > height;
+  int v[kColPx];
 #pragma unroll
-  for (int g = 0; g < kRuns; ++g) {
+  for (int g = 0; g < kColRuns; ++g) {
     int4 t = make_int4(-1, -1, -1, -1);   // no pixel: outside every window
-    if (has && (!padded || r + g * kRows < height))
+    if (has && (!padded || r + g * kColRows < height))
       t = __ldg(reinterpret_cast<const int4*>(
-          col_idx + (r + g * kRows) * width + c));
+          col_idx + (r + g * kColRows) * width + c));
     v[4 * g] = t.x;
     v[4 * g + 1] = t.y;
     v[4 * g + 2] = t.z;
@@ -476,49 +489,33 @@ col_window_vector_kernel(const float* __restrict__ m_rows, int height,
   if (!padded) {
     int m = INT_MAX;
 #pragma unroll
-    for (int i = 0; i < kPx; ++i) m = min(m, v[i]);
-    vmin = clampi(block_min_tiles<kTiles, kThr / 32>(has ? m : INT_MAX,
-                                                     run / 2, slots),
-                  0, mv - win);
+    for (int i = 0; i < kColPx; ++i) m = min(m, v[i]);
+    vmin = clampi(block_min_tiles(has ? m : INT_MAX, run / 2, slots), 0,
+                  mv - win);
   }
-  float tex[kPx];
-  bool inwin[kPx];
+  float tex[kColPx];
+  bool inwin[kColPx];
 #pragma unroll
-  for (int i = 0; i < kPx; ++i) {
+  for (int i = 0; i < kColPx; ++i) {
     // exact: vmin <= v or vmin == 0; an in-window v is < vmin + win <= mv
     const int rel = v[i] - vmin;
     inwin[i] = rel >= 0 && rel < win;
-    tex[i] = __ldg(m_rows + (inwin[i] ? (r + (i / 4) * kRows) * mv + v[i]
+    tex[i] = __ldg(m_rows + (inwin[i] ? (r + (i / 4) * kColRows) * mv + v[i]
                                       : 0));
   }
 #pragma unroll
-  for (int g = 0; g < kRuns; ++g) {
-    if (!has || r + g * kRows >= height) continue;
+  for (int g = 0; g < kColRuns; ++g) {
+    if (!has || r + g * kColRows >= height) continue;
     float o[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       o[j] = inwin[4 * g + j] ? __fadd_rn(0.0f, tex[4 * g + j]) : 0.0f;
-    *reinterpret_cast<float4*>(out + (r + g * kRows) * width + c) =
+    *reinterpret_cast<float4*>(out + (r + g * kColRows) * width + c) =
         make_float4(o[0], o[1], o[2], o[3]);
   }
 }
 
-template <int kTiles, int kPx>
-int col_vector_launch(const float* m_rows, int mv, const int32_t* col_idx,
-                      float* out, int height, int width, int win,
-                      cudaStream_t stream) {
-  const dim3 grid((width + 8 * kTiles - 1) / (8 * kTiles),
-                  (height + 127) / 128);
-  col_window_vector_kernel<kTiles, kPx>
-      <<<grid, 1024 * kTiles / kPx, 0, stream>>>(m_rows, height, mv,
-                                                 col_idx, out, width, win);
-  return (int)cudaGetLastError();
-}
-
 // The instantiation forms the wrappers choose between (trace/exp_warp.py).
-// Codes 2-9 are kernel 4's vector form at other (tiles a block, pixels a
-// thread), timed beside it: (1, 8), (2, 4), (4, 4), (4, 8), (4, 16),
-// (2, 8), (8, 8), (8, 16).
 constexpr int kFormGeneral = 0, kFormVector = 1;
 
 template <int TY, int TX>
@@ -618,22 +615,12 @@ extern "C" int col_window_launch(const float* m_rows, int mv,
                                                 out, width, win);
     return (int)cudaGetLastError();
   }
-  if (width % 8 != 0
+  if (form != kFormVector || width % 8 != 0
       || ((uintptr_t)col_idx | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-#define COL(T, P) \
-  col_vector_launch<T, P>(m_rows, mv, col_idx, out, height, width, win, s)
-  switch (form) {
-    case kFormVector: return COL(1, 4);
-    case 2: return COL(1, 8);
-    case 3: return COL(2, 4);
-    case 4: return COL(4, 4);
-    case 5: return COL(4, 8);
-    case 6: return COL(4, 16);
-    case 7: return COL(2, 8);
-    case 8: return COL(8, 8);
-    case 9: return COL(8, 16);
-  }
-#undef COL
-  return (int)cudaErrorInvalidValue;
+  const dim3 grid((width + 8 * kColTiles - 1) / (8 * kColTiles),
+                  (height + 127) / 128);
+  col_window_vector_kernel<<<grid, kColThreads, 0, s>>>(
+      m_rows, height, mv, col_idx, out, width, win);
+  return (int)cudaGetLastError();
 }
