@@ -396,6 +396,10 @@ EXP_ROWS = {
     9: ("tools/exp_warp2pass.py:34", ("row_window_kernel",
                                       "col_window")),
 }
+# the kernels with forms (trace/exp_warp.FORM_LAUNCHES) each row launches
+FORM_KERNELS = {4: ("onehot_window",), 6: ("row_window",),
+                7: ("onehot_window",), 8: ("onehot_window",),
+                9: ("row_window", "col_window")}
 # kernel 4's forms, by the code col_window_launch takes
 COL_FORMS = {"general": 0, "vector": 1}
 EXP_LIBRARY = "torch.take of the flat index (equal where the window covers)"
@@ -720,10 +724,8 @@ def experiments(smi: str) -> list:
             "variants": timed,
             "driver_ms": results[row]["ms"],
             "launches_by_form_on_inputs": {
-                k: {f: n for f, n in v.items() if f.split()[0] in {
-                    4: ("onehot_window",), 6: ("row_window",),
-                    7: ("onehot_window",), 8: ("onehot_window",),
-                    9: ("row_window", "col_window")}.get(row, ())}
+                k: {f: n for f, n in v.items()
+                    if f.split()[0] in FORM_KERNELS.get(row, ())}
                 for k, v in input_forms.items()},
         })
         if row == 9:

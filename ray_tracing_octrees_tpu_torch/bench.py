@@ -156,13 +156,12 @@ def run_bench(scene: str = "", width: int = 1920, height: int = 1080,
     dev = resolve_device(device)
     t_run = time.time()
     timings = {}
-    if scene != "sphere":
-        scene = scene or find_scene()
-    if scene and scene != "sphere":
-        grid = recenter_filled_voxels(load_voxel_grid(scene, device=dev))
-        scene_tag = os.path.splitext(os.path.basename(scene))[0]
+    path = "" if scene == "sphere" else scene or find_scene()
+    if path:
+        grid = recenter_filled_voxels(load_voxel_grid(path, device=dev))
+        scene_tag = os.path.splitext(os.path.basename(path))[0]
     else:
-        grid, scene = make_sphere_grid(dim, device=dev), ""
+        grid = make_sphere_grid(dim, device=dev)
         scene_tag = f"sphere{dim}"
     vol = (grid.occ > 0).to(torch.float32)
     _sync(dev)
@@ -334,21 +333,9 @@ def run_bench(scene: str = "", width: int = 1920, height: int = 1080,
         "exact_skip_reason": exact_skip_reason,
         "exact_radius_2": exact_radius_2,
         "timings_s": timings,
-        "scene": os.path.basename(scene) if scene else scene_tag,
+        "scene": os.path.basename(path) if path else scene_tag,
         "backend": _backend(dev),
     }
-
-
-def short_line(rec: dict, out: str) -> str:
-    """The line :func:`main` prints: the headline and the record's
-    path."""
-    line = json.dumps({k: rec[k] for k in ("metric", "value", "unit",
-                                           "frame_ms")}
-                      | {"record": os.path.relpath(out)})
-    if len(line) > MAX_LINE:
-        raise ValueError(f"the printed line has {len(line)} characters, "
-                         f"more than {MAX_LINE}: give a shorter --out")
-    return line
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -371,7 +358,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(rec, f, indent=1)
-    print(short_line(rec, args.out), flush=True)
+    line = json.dumps({k: rec[k] for k in ("metric", "value", "unit",
+                                           "frame_ms")}
+                      | {"record": os.path.relpath(args.out)})
+    if len(line) > MAX_LINE:
+        raise ValueError(f"the printed line has {len(line)} characters, "
+                         f"more than {MAX_LINE}: give a shorter --out")
+    print(line, flush=True)
 
 
 if __name__ == "__main__":

@@ -601,7 +601,7 @@ extern "C" int row_window_launch(const float* table, int th, int tc,
 }
 
 // `m_rows` f32 [height, mv]; `col_idx`, `out` [height, width] with
-// width % 8 == 0. The vector forms refuse a col_idx or out that is not
+// width % 8 == 0. The vector form refuses a col_idx or out that is not
 // 16-byte aligned.
 extern "C" int col_window_launch(const float* m_rows, int mv,
                                  const int32_t* col_idx, float* out,

@@ -177,3 +177,18 @@ def test_ensemble_row_matches_jax(record, jax_scene, i):
     assert row["ref"] == kind
     assert row["mismatches"] == want["mismatches"]
     assert abs(row["rms_vox"] - (want["depth_rms_voxels"] or 0.0)) <= RMS_TOL
+
+
+def test_scene_file_runs_recentred(tmp_path):
+    """``--scene PATH`` loads the cache file and recentres it, as the JAX
+    bench does; the record names the file."""
+    from ray_tracing_octrees_tpu_torch.core import cache, grid
+
+    path = tmp_path / "scene16.bin"
+    cache.save_voxel_grid(str(path), grid.make_sphere_grid(16, device="cpu"))
+    rec = bench.run_bench(scene=str(path), width=32, height=18, iters=1,
+                          exact_res=(32, 18), n_poses=1, device="cpu")
+    assert rec["scene"] == "scene16.bin"
+    assert rec["metric"] == "raytrace_scene16_18p_primary+shadow"
+    assert rec["parity_ensemble"]["n_poses"] == 1
+    assert 0 < rec["hit_fraction"] < 1
