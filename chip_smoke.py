@@ -72,8 +72,32 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               at its defaults) with the frame kernels' launch counts set to
               0 before it and read after it: its one short line, its
               record's sections (headline, parity line equal to phase 9's,
-              the exact section, the 16-pose ensemble)
-  13. lines   the kernels JSON line, the nvidia-smi line, and last the
+              the exact section, which must take the DDA ladder at the
+              headline pose, the 16-pose ensemble)
+  13. dda     the DDA-ladder frame (render_octree_image over the leaf
+              volume with sweep_seed's seeds, ball skipping and the JAX
+              bench's ladders) at 1920x1088 with shadows at the bench pose:
+              ms per frame, the primary rays' steps (median, largest),
+              compactions and host syncs per frame, the device-busy share
+              under torch.profiler; then the DDA's check period (steps
+              between host syncs) at 1, 2, 4 and 8, timed in turns
+  14. dda parity  the same trace's hit mask at 240x136 (the headline's
+              aspect) against trace_octree: every mismatch a grazing
+              crossing
+  15. sweep exact  render_exact_frame at 1920x1088 with shadows at the
+              bench angles and radius 2.0 x extent: ms, stats (overflow
+              and unresolved 0), idle share; warp_lookup launched on its
+              dead test, counts set to 0 before and read after, bitwise
+              against warp_lookup_reference on that frame's table and lin
+  16. tracer  OctreeRayTracer.render at 1920x1080 with shadows: the default
+              config at both poses (the DDA at the headline radius,
+              sweep-exact at 2.0), use_sweep_exact=False, use_fast_exact=
+              True and fast=True, the path each took, with warp_frame's,
+              warp_lookup's and warp_lookup_multi's counts set to 0 before
+              and read after (each must launch)
+  17. card vs CPU  trace_octree_fast and the sweep-exact primary on the
+              32^3 sphere: equal hit masks and equal t
+  18. lines   the kernels JSON line, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line
 
 Imports nothing of JAX or of the JAX package. Without a CUDA device, or
@@ -82,6 +106,7 @@ without the port package beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -124,6 +149,8 @@ MATCH_SHARE = 0.995
 N_EXACT = 5           # exact frames per timed window
 EXACT_RADIUS = 2.0    # x extent: the bench angles inside the exact envelope
 N_COLD = 16           # copies of a row's index fields in its cold timings
+EW, EH = 1920, 1088   # the exact frames of phases 13 and 15 (the JAX bench's)
+CHECK_PERIODS = [1, 2, 4, 8]   # DDA steps between live checks, timed in turns
 
 
 def log(phase: str, msg: str) -> None:
@@ -308,12 +335,12 @@ def compare_lookup_bodies(tab, ln, lins, dev_ms_of):
             "vector_in_turns_ms_cold": best["vector"][1]}
 
 
-def frame_classes(img):
+def frame_classes(img, amb: float = 26 / 255.0):
     """(lit, shadowed, background) pixel counts of an rgba frame rendered
-    with the default ambient 0.1 (quantized to 26/255)."""
+    with the default ambient 0.1: quantized to 26/255 (int(0.1 * 255 +
+    0.5)) by the fused kernels, 0.1 in f32 in the exact frames."""
     rgb = img[..., :3]
     mx = rgb.amax(-1)
-    amb = 26 / 255.0   # int(0.1 * 255 + 0.5)
     background = mx == 0
     shadowed = (rgb - amb).abs().amax(-1) < 1e-6
     lit = ~background & ~shadowed
@@ -679,6 +706,8 @@ def experiments(smi: str) -> list:
         flat = torch.where(lin < 0, 0, lin).reshape(-1).long()
         l_ms = cuda_ms(lambda: torch.take(table, flat), 200)
         _, lper = profiled(lambda: torch.take(table, flat), 50)
+        if not lper:    # the profiler recorded no device time: once more
+            _, lper = profiled(lambda: torch.take(table, flat), 50)
         flats = [(flat.clone(),) for _ in range(N_COLD)]
         _, lper_cold = profiled(
             rotating(lambda f: torch.take(table, f), flats), 50)
@@ -793,7 +822,9 @@ def run_bench_phase(parity_ref: dict) -> dict:
         f"{rec['frame_ms']:.3f} ms (windows {rec['frame_ms_windows']}), "
         f"{rec['value']:.1f} Mrays/s, hit fraction {rec['hit_fraction']:.4f}; "
         f"parity {rec['parity_vs_exact']}; exact at the headline pose: "
-        f"{rec['exact_tracer_path'] or rec['exact_skip_reason']}; radius "
+        f"{rec['exact_tracer_path']} {rec['exact_headline']}, "
+        f"{rec['exact_tracer_mrays']:.3f} Mrays/s (tried "
+        f"{rec['exact_tried']}); radius "
         f"{near['radius_f']}: {near.get('frame_ms')} ms, "
         f"{near.get('mrays')} Mrays/s ({near['path']}, {near.get('stats')})")
     log("bench", f"ensemble: {ens['n_poses']} poses at {ens['resolution']}, "
@@ -811,9 +842,9 @@ def run_bench_phase(parity_ref: dict) -> dict:
             par["depth_rms_voxels"], parity_ref["depth_rms_voxels"],
             rel_tol=1e-6)):
         bad.append(f"parity line {par} differs from phase 9's {parity_ref}")
-    if not (rec["exact_tracer_path"] is None and rec["exact_skip_reason"]
-            or rec["exact_tracer_path"] == "fast_exact"
-            and rec["exact_tracer_mrays"] > 0):
+    if not (rec["exact_tracer_path"] == "dda"
+            and rec["exact_tracer_mrays"] > 0
+            and rec["exact_headline"]["frame_ms"] > 0):
         bad.append("exact section")
     if near["path"] != "fast_exact" or not near["frame_ms"] > 0:
         bad.append(f"radius-{near['radius_f']} exact frame {near}")
@@ -826,10 +857,328 @@ def run_bench_phase(parity_ref: dict) -> dict:
     return {"line": short, "seconds": secs, "launches": launches,
             "frame_ms": rec["frame_ms"], "mrays_per_s": rec["value"],
             "parity_vs_exact": par, "exact_tracer_path":
-            rec["exact_tracer_path"], "exact_radius_2": near,
+            rec["exact_tracer_path"], "exact_headline": rec["exact_headline"],
+            "exact_tracer_mrays": rec["exact_tracer_mrays"],
+            "exact_radius_2": near,
             "ensemble": {k: ens[k] for k in ("n_poses", "worst_pose",
                                               "median_mismatch",
                                               "max_rms_vox")}}
+
+
+def exact_tracer_phases(ctx: dict) -> dict:
+    """Phases 13-17: the exact DDA ladder frame, its parity, the
+    sweep-exact frame, OctreeRayTracer's routes and card-against-CPU on
+    the 32^3 sphere. ``ctx`` holds the scene and helpers of main; returns
+    the record's summary and the kernels' launches by path."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_octrees_tpu_torch import bench
+    from ray_tracing_octrees_tpu_torch.config import EngineConfig
+    from ray_tracing_octrees_tpu_torch.core.octree import (
+        build_leaf_volume, build_pyramid,
+    )
+    from ray_tracing_octrees_tpu_torch.models.octree_raytracer import (
+        OctreeRayTracer,
+    )
+    from ray_tracing_octrees_tpu_torch.render.camera import (
+        Camera, generate_rays,
+    )
+    from ray_tracing_octrees_tpu_torch.trace import (
+        octree_trace, slab_sweep, sweep_exact,
+    )
+    from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
+    from ray_tracing_octrees_tpu_torch.trace.octree_trace import (
+        trace_octree, trace_octree_fast,
+    )
+
+    dev, smi = ctx["dev"], ctx["smi"]
+    vol, pyr, origin, vox = ctx["vol"], ctx["pyr"], ctx["origin"], ctx["vox"]
+    light_dir, aspect = ctx["light_dir"], WIDTH / HEIGHT
+    kernels = {"warp_frame": wk.warp_frame, "warp_lookup": wk.warp_lookup,
+               "warp_lookup_multi": wk.warp_lookup_multi}
+    amb32 = float(np.float32(0.1))
+    out = {"launches": {}}
+
+    def zero():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def windows_ms(frame, cam):
+        wins = []
+        for _ in range(3):
+            t = time.perf_counter()
+            for _ in range(N_EXACT):
+                cam.phi += 1e-4
+                frame(cam)
+            torch.cuda.synchronize()
+            wins.append((time.perf_counter() - t) / N_EXACT * 1e3)
+        return wins
+
+    # 13. the DDA-ladder frame at the headline pose
+    t = time.perf_counter()
+    leaf_vol = build_leaf_volume(pyr)
+    seed_lay = slab_sweep.SweepLayouts(slab_sweep.dilate_occupancy(
+        vol, device=dev))
+    torch.cuda.synchronize()
+    log("dda", f"leaf volume {tuple(leaf_vol.shape)} and dilated seed "
+        f"volume {tuple(seed_lay.volume.shape)} in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    def dda(cam, stats=None):
+        return bench.dda_ladder_frame(pyr, leaf_vol, seed_lay, origin, vox,
+                                      cam, EW, EH, aspect, light_dir, dev,
+                                      stats)[0]
+
+    cam = ctx["bench_camera"]()
+    zero()
+    st = {}
+    t = time.perf_counter()
+    img = dda(cam, st)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    out["launches"]["DDA frame (phase 13)"] = read()
+    counts = bench.dda_counts(st)
+    seeded = bench.dda_ladder_frame(pyr, leaf_vol, seed_lay, origin, vox, cam,
+                                    16, 9, aspect, light_dir, dev)[1]
+    shadow_steps = next(x["steps"] for x in st["traces"]
+                        if x["kind"] == "shadow")
+    wins = windows_ms(dda, cam)
+    wall, per = profiled(lambda: dda(cam), 2)
+    busy = sum(per.values())
+    lit, shadowed, background = frame_classes(img, amb32)
+    dda_rec = dict(
+        frame_ms=min(wins), frame_ms_windows=wins, first_frame_s=first_s,
+        mrays_per_s=2 * EW * EH / min(wins) / 1e3, counts=counts,
+        seeded=seeded, shadow_steps_max=int(shadow_steps.max()),
+        profiled_wall_ms=wall, device_busy_ms=busy if per else None,
+        idle_share=max(0.0, 1 - busy / wall) if per else None,
+        kernel_kinds=len(per), pixels=dict(lit=lit, shadowed=shadowed,
+                                           background=background))
+    log("dda", f"[{smi}] {EW}x{EH} at the bench pose, shadows on: "
+        f"{min(wins):.3f} ms per frame (best of 3 windows of {N_EXACT}: "
+        f"{', '.join(f'{w:.3f}' for w in wins)}), "
+        f"{dda_rec['mrays_per_s']:.2f} Mrays/s; first frame {first_s:.2f} s; "
+        f"seeds applied {seeded}; per frame {counts} (shadow steps max "
+        f"{dda_rec['shadow_steps_max']}); profiled wall {wall:.3f} ms, "
+        + (f"device busy {busy:.3f} ms, idle share "
+           f"{dda_rec['idle_share']:.3f}, {len(per)} kernel kinds" if per
+           else "device time not measured")
+        + f"; launches {out['launches']['DDA frame (phase 13)']}; lit {lit}, "
+        f"shadowed "
+        f"{shadowed}, background {background} px")
+    if tuple(img.shape) != (EH, EW, 4) or not bool(torch.isfinite(img).all()):
+        raise RuntimeError(f"bad DDA frame {tuple(img.shape)}")
+    if min(lit, shadowed, background) == 0:
+        raise RuntimeError("the DDA frame lacks lit, shadowed or background "
+                           "pixels")
+    if counts["primary_steps_max"] >= 512:
+        raise RuntimeError("the DDA frame reached the step bound")
+    # the DDA's check period (a host sync each; a check compacts when at
+    # most half of the rows are alive), timed in turns: one window of
+    # N_EXACT frames per period, the periods in order and then reversed
+    base = octree_trace._FAST_CHECK_EVERY
+    periods = {}
+    try:
+        for k in CHECK_PERIODS + CHECK_PERIODS[::-1]:
+            octree_trace._FAST_CHECK_EVERY = k
+            st_k = {}
+            dda(cam, st_k)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(N_EXACT):
+                cam.phi += 1e-4
+                dda(cam)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) / N_EXACT * 1e3
+            periods.setdefault(k, dict(ms=[], counts=bench.dda_counts(st_k)))
+            periods[k]["ms"].append(ms)
+    finally:
+        octree_trace._FAST_CHECK_EVERY = base
+    dda_rec["check_periods"] = periods
+    log("dda", f"[{smi}] check period in turns (ms per frame; syncs, "
+        f"compactions, steps run a frame): " + "; ".join(
+            f"every {k}: {', '.join(f'{m:.3f}' for m in v['ms'])}; "
+            f"{v['counts']['syncs']}, {v['counts']['compactions']}, "
+            f"{v['counts']['iterations']}" for k, v in periods.items()))
+
+    # 14. its hit mask against the oracle
+    pw, ph = 240, 136
+    o, d = generate_rays(pw, ph, cam.get_pos(), cam.get_view(), 45.0, aspect,
+                         device=dev)
+    ref = trace_octree(pyr, o, d, origin, vox)
+    live, ts, ext = slab_sweep.sweep_seed(
+        seed_lay.volume, origin, vox, cam.get_pos(), cam.get_view(), 45.0,
+        aspect, pw, ph, layouts=seed_lay, device=dev)
+    res = trace_octree_fast(leaf_vol, o, d, origin, vox, ball_skip=True,
+                            t_start=ts if ext else None,
+                            live_mask=live if ext else None,
+                            const_origin=True)
+    idx = torch.nonzero(res["hit"] != ref["hit"]).squeeze(1).cpu().numpy()
+    bad = grazing_failures(
+        idx, o.cpu().numpy().astype(np.float64),
+        d.cpu().numpy().astype(np.float64), res["t"].cpu().numpy(),
+        ref["t"].cpu().numpy(), ctx["occ_np"], origin.astype(np.float64), vox)
+    both = res["hit"] & ref["hit"]
+    t_err = float((res["t"] - ref["t"]).abs()[both].max())
+    dda_rec["parity"] = dict(resolution=f"{pw}x{ph}", mismatches=len(idx),
+                             not_grazing=len(bad), t_max_abs_err=t_err,
+                             oracle_hits=int(ref["hit"].sum()))
+    log("dda parity", f"{pw}x{ph}: {len(idx)} hit mismatches against "
+        f"trace_octree, {len(bad)} not grazing; t max abs err {t_err:.3g} "
+        f"on {int(both.sum())} agreed hits")
+    if bad:
+        raise RuntimeError(f"DDA mismatches that are not grazing crossings: "
+                           f"{bad[:10]}")
+    out["dda"] = dda_rec
+
+    # 15. the sweep-exact frame at radius 2.0
+    ecam = ctx["exact_camera"]()
+    lay = ctx["layouts"]
+    t = time.perf_counter()
+    sfld = sweep_exact.build_shadow_field(vol, light_dir, vox, layouts=lay,
+                                          device=dev)
+    torch.cuda.synchronize()
+    field_s = time.perf_counter() - t
+    if sfld is None:
+        raise RuntimeError("the light is outside the shadow field's envelope")
+
+    def sweep_frame(c):
+        got = sweep_exact.render_exact_frame(
+            vol, leaf_vol, origin, vox, c.get_pos(), c.get_view(), EW, EH,
+            45.0, aspect, light_dir=light_dir, shadows=True,
+            shadow_field=sfld, layouts=lay, device=dev)
+        if got is None:
+            raise RuntimeError("the sweep-exact pose is outside its envelope")
+        return got
+
+    look_calls, restore = recorded(sweep_exact, "warp_lookup")
+    zero()
+    simg, sstats = sweep_frame(ecam)
+    torch.cuda.synchronize()
+    restore()
+    out["launches"]["sweep-exact frame (phase 15)"] = read()
+    table, lin = look_calls[0]
+    got = wk.warp_lookup(table, lin)
+    ref_l = wk.warp_lookup_reference(table, lin)
+    torch.cuda.synchronize()
+    dead_share = equal_share(got, ref_l)
+    swins = windows_ms(lambda c: sweep_frame(c), ecam)
+    swall, sper = profiled(lambda: sweep_frame(ecam), 2)
+    sbusy = sum(sper.values())
+    s_lit, s_sh, s_bg = frame_classes(simg, amb32)
+    out["sweep_exact"] = dict(
+        frame_ms=min(swins), frame_ms_windows=swins,
+        mrays_per_s=2 * EW * EH / min(swins) / 1e3, stats=sstats,
+        shadow_field_s=field_s, shadow_field_lattice=(sfld.inter_h,
+                                                       sfld.inter_w),
+        taps=(sfld.ta, sfld.tb), profiled_wall_ms=swall,
+        device_busy_ms=sbusy if sper else None,
+        idle_share=max(0.0, 1 - sbusy / swall) if sper else None,
+        dead_test=dict(table=list(table.shape), lin=list(lin.shape),
+                       bitwise_share=dead_share,
+                       max_abs_err=float((got - ref_l).abs().max())),
+        pixels=dict(lit=s_lit, shadowed=s_sh, background=s_bg))
+    log("sweep exact", f"[{smi}] {EW}x{EH}, radius {EXACT_RADIUS} x extent, "
+        f"shadows on: {min(swins):.3f} ms per frame (best of 3 windows of "
+        f"{N_EXACT}: {', '.join(f'{w:.3f}' for w in swins)}), "
+        f"{out['sweep_exact']['mrays_per_s']:.2f} Mrays/s; stats {sstats}; "
+        f"shadow field {sfld.inter_h}x{sfld.inter_w} taps {sfld.ta}x"
+        f"{sfld.tb} in {field_s:.2f} s; profiled wall {swall:.3f} ms, "
+        + (f"device busy {sbusy:.3f} ms, idle share "
+           f"{out['sweep_exact']['idle_share']:.3f}" if sper
+           else "device time not measured")
+        + f"; launches {out['launches']['sweep-exact frame (phase 15)']}; "
+        f"dead test "
+        f"warp_lookup on table {tuple(table.shape)}, lin {tuple(lin.shape)}: "
+        f"bitwise {dead_share:.6f}; lit {s_lit}, shadowed {s_sh}, "
+        f"background {s_bg} px")
+    if out["launches"]["sweep-exact frame (phase 15)"]["warp_lookup"] < 1:
+        raise RuntimeError("the sweep-exact frame launched no warp_lookup")
+    if dead_share != 1.0:
+        raise RuntimeError("warp_lookup differs from its plain version on "
+                           "the dead test")
+    if sstats["overflow"] or sstats["unresolved"] or sstats["s_unresolved"]:
+        raise RuntimeError(f"the sweep-exact frame left rays: {sstats}")
+    if min(s_lit, s_sh, s_bg) == 0 or not bool(torch.isfinite(simg).all()):
+        raise RuntimeError("the sweep-exact frame lacks lit, shadowed or "
+                           "background pixels")
+
+    # 16. OctreeRayTracer.render through every route
+    cfg = EngineConfig()
+    rt_cfg = cfg.raytrace
+    settings = [
+        ("default, headline radius", cfg, ctx["bench_camera"], {}, "dda"),
+        ("default, radius 2.0", cfg, ctx["exact_camera"], {}, "sweep_exact"),
+        ("use_sweep_exact=False", dataclasses.replace(
+            cfg, raytrace=dataclasses.replace(rt_cfg, use_sweep_exact=False)),
+         ctx["exact_camera"], {}, "dda"),
+        ("use_fast_exact=True", dataclasses.replace(
+            cfg, raytrace=dataclasses.replace(rt_cfg, use_fast_exact=True)),
+         ctx["exact_camera"], {}, "fast_exact"),
+        ("fast=True", cfg, ctx["bench_camera"], dict(fast=True), "fast"),
+    ]
+    grid = ctx["grid"]
+    routes = {}
+    zero()
+    t0 = time.perf_counter()
+    for label, c, camera, kw, want in settings:
+        tracer = OctreeRayTracer(config=c)
+        tracer.set_octree(grid, pyramid=pyr)
+        t = time.perf_counter()
+        rimg = tracer.render(camera(), WIDTH, HEIGHT, aspect, shadows=True,
+                             **kw)
+        torch.cuda.synchronize()
+        routes[label] = dict(path=tracer.last_path, seconds=time.perf_counter()
+                             - t, hit_share=float((rimg[..., :3].amax(-1) > 0)
+                                                  .float().mean()))
+        log("tracer", f"{label}: path {tracer.last_path}, "
+            f"{routes[label]['seconds']:.2f} s with the scene's set-up, hit "
+            f"share {routes[label]['hit_share']:.4f}")
+        if tracer.last_path != want or tuple(rimg.shape) != (HEIGHT, WIDTH,
+                                                             4):
+            raise RuntimeError(f"OctreeRayTracer {label}: path "
+                               f"{tracer.last_path}, want {want}")
+    out["launches"]["OctreeRayTracer (phase 16)"] = tracer_launches = read()
+    log("tracer", f"five renders in {time.perf_counter() - t0:.2f} s; "
+        f"launches {tracer_launches}")
+    missing = [k for k, v in tracer_launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"OctreeRayTracer's routes launched no {missing}")
+    out["tracer"] = routes
+
+    # 17. the card against the CPU on the 32^3 sphere
+    small = ctx["small"]
+    s_lv = build_leaf_volume(build_pyramid(small.occ))
+    s_vol = (small.occ > 0).to(torch.float32)
+    pc = Camera(theta=0.9, phi=0.8, radius=2.0)
+    sargs = (small.origin.numpy(), float(small.voxel_size))
+    o, d = generate_rays(128, 72, pc.get_pos(), pc.get_view(), 45.0, 128 / 72,
+                         device="cpu")
+    cpu = trace_octree_fast(s_lv, o, d, *sargs, ball_skip=True)
+    gpu = trace_octree_fast(s_lv.to(dev), o.to(dev), d.to(dev), *sargs,
+                            ball_skip=True)
+    pargs = (*sargs, pc.get_pos(), pc.get_view(), 128, 72, 45.0, 128 / 72)
+    p_cpu = sweep_exact.trace_pixels_sweep_exact(s_vol, s_lv, *pargs,
+                                                 device="cpu")
+    p_gpu = sweep_exact.trace_pixels_sweep_exact(s_vol.to(dev), s_lv, *pargs,
+                                                 device=dev)
+    equal = {}
+    for name, a, b in (("trace_octree_fast", gpu, cpu),
+                       ("sweep-exact primary", p_gpu, p_cpu)):
+        equal[name] = dict(hit=torch.equal(a["hit"].cpu(), b["hit"]),
+                           t=torch.equal(a["t"].cpu(), b["t"]),
+                           hits=int(b["hit"].sum()))
+        log("card vs CPU", f"{name}, 32^3 sphere 128x72: hit masks equal "
+            f"{equal[name]['hit']}, t equal {equal[name]['t']} "
+            f"({equal[name]['hits']} hits)")
+    if not all(v["hit"] and v["t"] for v in equal.values()):
+        raise RuntimeError(f"the card disagrees with the CPU: {equal}")
+    out["card_vs_cpu"] = equal
+    return out
 
 
 def main() -> int:
@@ -1385,13 +1734,30 @@ def main() -> int:
     # 12. the bench
     bench_rec = run_bench_phase(checks_parity["sweep_first_hit"])
 
-    # 13. lines
+    # 13-17. the exact tracers of the seventh slice
+    slice7 = exact_tracer_phases(dict(
+        dev=dev, smi=smi, vol=vol, pyr=pyr, origin=origin, vox=vox,
+        light_dir=light_dir, layouts=layouts, grid=grid, occ_np=occ_np,
+        small=small, bench_camera=bench_camera, exact_camera=exact_camera))
+    by_path = {
+        "warp_frame": {"fast frame (phase 4)": launches["warp_frame"]},
+        "warp_lookup": {"sweep_first_hit (phase 7)":
+                        sfh_launches["warp_lookup"]},
+        "warp_lookup_multi": {"exact frame (phase 8)":
+                              ex_launches["warp_lookup_multi"]},
+    }
+    for path, counts in slice7["launches"].items():
+        for k, v in counts.items():
+            by_path[k][path] = v
+
+    # 18. lines
     record = {"kernels": [{
         "name": "warp_frame",
         "route": "cuda",
         "source": "ray_tracing_octrees_tpu_torch/trace/csrc/warp_frame.cu",
         "replaces": "ray_tracing_octrees_tpu/trace/warp_kernel.py:309",
-        "launches": launches["warp_frame"],
+        "launches": sum(by_path["warp_frame"].values()),
+        "launches_by_path": by_path["warp_frame"],
         "launches_per_frame": launches["warp_frame"] / n_main,
         "max_abs_err": max(e for _, _, e in checks.values()),
         "bitwise_share": {k: b for k, (b, _, _) in checks.items()},
@@ -1424,7 +1790,8 @@ def main() -> int:
         "source": "ray_tracing_octrees_tpu_torch/trace/csrc/warp_lookup.cu",
         "replaces": "ray_tracing_octrees_tpu/trace/warp_kernel.py:"
                     + ("50" if kname == "warp_lookup" else "192"),
-        "launches": launches_of,
+        "launches": sum(by_path[kname].values()),
+        "launches_by_path": by_path[kname],
         "launches_per_frame": launches_of / n_frames,
         "max_abs_err": max(e for _, e in lk["res"].values()),
         "bitwise_share": {k: b for k, (b, _) in lk["res"].items()},
@@ -1463,7 +1830,9 @@ def main() -> int:
         "exact_mrays_per_s": exact_mrays, "exact_stage_ms": stage_ms,
         "exact_stats": estats, "exact_profiled_wall_ms": ewall,
         "exact_device_busy_ms": ebusy if eper else None,
-        "parity": checks_parity, "bench": bench_rec, "card": smi}
+        "parity": checks_parity, "bench": bench_rec,
+        "exact_tracers": {k: v for k, v in slice7.items() if k != "launches"},
+        "card": smi}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 
 Counterpart of the pyramid half of ``ray_tracing_octrees_tpu/core/
 octree.py`` (``padded_cube_size``, ``OccupancyPyramid``, ``_reduce_level``,
-``build_pyramid``). For every level k the pyramid stores, per 2^k-sized
+``build_pyramid``, ``build_leaf_volume``, ``decode_skip_radius``). The
+linear (BFS node array) octree is not ported yet. For every level k the
+pyramid stores, per 2^k-sized
 cell, a 2-bit code: 0 all empty, 1 mixed, 2 all solid. With space outside
 the grid read as empty (``getVoxelSafe``, OctreeVoxel.cpp:694-702) this
 encodes the reference octree losslessly: a node is a leaf iff its cell is
@@ -87,3 +89,95 @@ def build_pyramid(occ: torch.Tensor) -> OccupancyPyramid:
         all_levels.append(b)
     return OccupancyPyramid([a.to(torch.uint8) + b.to(torch.uint8)
                              for a, b in zip(any_levels, all_levels)])
+
+
+def _upsample(a: torch.Tensor, f: int) -> torch.Tensor:
+    """Nearest upsample by ``f`` along all three axes."""
+    for ax in range(3):
+        a = a.repeat_interleave(f, dim=ax)
+    return a
+
+
+def _dilate3(a: torch.Tensor) -> torch.Tensor:
+    """3x3x3 OR-dilation of a bool volume (cells past the edges read
+    False)."""
+    return F.max_pool3d(a.to(torch.float32)[None, None], 3, stride=1,
+                        padding=1)[0, 0] > 0
+
+
+def _cube(code: torch.Tensor, sk: int) -> torch.Tensor:
+    """A level's codes zero-padded (uniform-empty) to the (sk)^3 cube."""
+    out = torch.zeros((sk, sk, sk), dtype=code.dtype, device=code.device)
+    dz, dy, dx = code.shape
+    out[:dz, :dy, :dx] = code
+    return out
+
+
+def build_leaf_volume(pyramid: OccupancyPyramid,
+                      skip_radius_cap: int = 7) -> torch.Tensor:
+    """Per-voxel packed leaf descriptor over the full 2^L root cube, on the
+    pyramid's device.
+
+    u8[S, S, S] with, for the voxel v:
+
+      bit  0    : solid (occupancy),
+      bits 1..4 : leaf level, the largest pyramid level whose cell holding
+                  v is uniform (cells outside the grid read uniform-empty):
+                  the level ``trace_octree``'s root-to-voxel descent finds,
+      bits 5..7 : empty-skip radius code c, decoded r = c for c <= 3
+                  (exact Chebyshev distances) and r = 2^(c-1) for c in
+                  4..7 (8/16/32/64, from coarse pyramid neighbourhoods):
+                  the box [v - r, v + r + 1) holds no solid voxel; 0 for
+                  solid voxels (:func:`decode_skip_radius`).
+
+    One lookup of this volume replaces the per-level descent in
+    ``trace/octree_trace.py::trace_octree_fast``.
+    """
+    top = pyramid.num_levels - 1
+    S = pyramid.root_size
+    u8 = torch.uint8
+
+    # topmost uniform level per voxel, coarse to fine, each level's state
+    # upsampled by 2 before the next
+    code_c = _cube(pyramid.code_levels[top], S >> top)
+    uni = code_c != 1
+    level = torch.where(uni, top, 0).to(u8)
+    solid = uni & (code_c == 2)
+    found = uni
+    for k in range(top - 1, -1, -1):
+        level, solid, found = (_upsample(x, 2) for x in (level, solid, found))
+        code_c = _cube(pyramid.code_levels[k], S >> k)
+        uni = code_c != 1
+        take = uni & ~found
+        level = torch.where(take, k, level.to(torch.int32)).to(u8)
+        solid = torch.where(take, code_c == 2, solid)
+        found = found | uni
+
+    # codes 1..3 (exact): after i 3^3 dilations of the solid mask, dil is
+    # "some solid voxel within Chebyshev distance i"
+    dil = solid
+    radius = torch.zeros(solid.shape, dtype=u8, device=solid.device)
+    for _ in range(min(int(skip_radius_cap), 3)):
+        dil = _dilate3(dil)
+        radius = radius + (~dil).to(u8)
+    # codes 4..7 (r = 2^(c-1)): no solid in the 3^3 block of level-k cells
+    # (k = c - 1) around v's cell makes r = 2^k safe for every v in the
+    # centre cell; monotone in c, so the largest qualified code wins
+    if int(skip_radius_cap) > 3:
+        for c in range(4, min(int(skip_radius_cap), 7) + 1):
+            k = c - 1
+            if k > top:
+                break
+            q = ~_dilate3(_cube(pyramid.code_levels[k], S >> k) != 0)
+            radius = torch.where(_upsample(q, 1 << k), c,
+                                 radius.to(torch.int32)).to(u8)
+    radius = torch.where(solid, 0, radius.to(torch.int32)).to(u8)
+    return solid.to(u8) | (level << 1) | (radius << 5)
+
+
+def decode_skip_radius(code: torch.Tensor) -> torch.Tensor:
+    """Decoded Chebyshev skip radius (int32) of a leaf-volume radius code:
+    r = c for c <= 3, else 2^(c-1)."""
+    c = code.to(torch.int32)
+    return torch.where(c <= 3, c, torch.bitwise_left_shift(
+        torch.ones_like(c), c - 1))

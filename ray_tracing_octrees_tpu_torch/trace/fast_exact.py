@@ -144,32 +144,13 @@ def _cube_sweep(occ_sw, shadow_sw, scal, s_valid: int, a_size: int,
 # per-pixel epilogue: closed-form cube DDA
 # --------------------------------------------------------------------------
 
-def _texel_map(rd3, scal, flip: bool, IH: int, IW: int):
-    """(geo_ok, ti, tj): whether each ray points into the sweep and meets
-    the reference plane inside the lattice window, and its texel there
-    (the hat lattice's own formulas)."""
-    eye_s, eye_a, eye_b, z0 = scal[0], scal[1], scal[2], scal[3]
-    a_min, a_max, b_min, b_max = scal[4], scal[5], scal[6], scal[7]
-    rd_s = rd3[0]
-    forward = (rd_s < 0) if flip else (rd_s > 0)
-    safe = torch.where(rd_s.abs() < se._DEG, 1.0, rd_s)
-    ua = eye_a + (z0 - eye_s) * rd3[1] / safe
-    ub = eye_b + (z0 - eye_s) * rd3[2] / safe
-    in_win = (ua >= a_min) & (ua <= a_max) & (ub >= b_min) & (ub <= b_max)
-    ti = torch.floor((ua - a_min) / (a_max - a_min) * IH).to(
-        torch.int32).clamp(0, IH - 1)
-    tj = torch.floor((ub - b_min) / (b_max - b_min) * IW).to(
-        torch.int32).clamp(0, IW - 1)
-    return forward & in_win, ti, tj
-
-
 def _pixel_cube_resolve(pv0, pv1, pv2, rd3, scal, flip: bool, S: int,
                         IH: int, IW: int, ti, tj, geo_ok, ta: int, tb: int):
     """Each pixel's exact first hit from its warped cube planes.
 
     ``rd3`` (s, a, b) ray components per pixel, ``ti`` / ``tj`` /
-    ``geo_ok`` from :func:`_texel_map`. Returns dict(hit, t, ks, ca, cb,
-    sh, suspicious, o1) of [N] tensors; ``suspicious`` rows (cube run out
+    ``geo_ok`` from :func:`sweep_exact._texel_map`. Returns dict(hit, t,
+    ks, ca, cb, sh, suspicious, o1) of [N] tensors; ``suspicious`` rows (cube run out
     with candidates possibly left) carry o1 for the fallback's start.
     """
     f32 = torch.float32
@@ -282,7 +263,7 @@ def _run_fallback(res, words, nb9, scal, consts, axis_world: int,
     yf = (pix // width).to(torch.float32)
     rd3 = tuple(c / scal[10] for c in se._rays_sab_from_xy(
         xf, yf, scal, consts, axis_world, width, height))
-    _, ti, tj = _texel_map(rd3, scal, flip, IH, IW)
+    _, ti, tj = se._texel_map(rd3, scal, flip, IH, IW)
     m = pix.shape[0]
     ro3 = tuple(scal[c].expand(m) for c in range(3))
     st, rounds = se._consume_ladder(
@@ -355,7 +336,7 @@ def _fast_exact_frame(cfg, scal_np, shadow_sw, width: int, height: int,
 
     rd3 = tuple(c / scal[10] for c in se._pixel_rays_sab(
         scal, consts, axis_world, width, height))
-    geo_ok, ti, tj = _texel_map(rd3, scal, flip, IH, IW)
+    geo_ok, ti, tj = se._texel_map(rd3, scal, flip, IH, IW)
     lin = torch.where(geo_ok, (ti << 10) | tj, -1)
     pv0, pv1, pv2 = _warp_planes(planes, lin.reshape(height, width))
     res = _pixel_cube_resolve(pv0, pv1, pv2, rd3, scal, flip, S, IH, IW,

@@ -1,15 +1,15 @@
-"""Tap words of the detection sweep.
+"""Tap words and the candidate bit field of the detection sweep.
 
 Counterpart of ``ray_tracing_octrees_tpu/trace/mesh_grid.py::
-exact_tap_words``, the one function of that module the exact fast frame
-needs; the mesh tracer itself is not ported yet.
+exact_tap_words`` and ``_sweep_candidates``, the functions of that module
+the exact tracers need; the mesh tracer itself is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ray_tracing_octrees_tpu_torch.trace.slab_sweep import _exact_matmul
+from ray_tracing_octrees_tpu_torch.trace.slab_sweep import CH, _exact_matmul
 
 
 def exact_tap_words(sl, ma, mb, wide: bool):
@@ -43,3 +43,37 @@ def exact_tap_words(sl, ma, mb, wide: bool):
         det_lo = torch.einsum("cbh,cwb->chw", hb_lo.to(f32), mb_f)
         det_hi = torch.einsum("cbh,cwb->chw", hb_hi.to(f32), mb_f)
     return det_lo + 512.0 * det_hi
+
+
+def _sweep_candidates(detect_sw, hats, s_valid: int, a_size: int,
+                      b_size: int, inter_h: int, inter_w: int, flip: bool,
+                      exact_acc: bool = False) -> torch.Tensor:
+    """One detection sweep builds a frame's whole candidate bit field:
+    int32[IH * IW, sp / 32], bit (o & 31) of word [texel, o >> 5] set iff
+    the texel's footprint in slab o holds a solid cell.
+
+    ``detect_sw`` bf16[sp, A, B] 0/1 occupancy in sweep order, ``hats``
+    (ma_w, mb_w, am, bm) the tap weights and footprint masks of
+    ``sweep_exact._widened_perspective_hats`` or ``_ortho_hats``. Per
+    32-slab chunk the tap words (:func:`exact_tap_words`, split-chain
+    exact with ``exact_acc``) AND the separable footprint mask give the
+    slab's candidate flag. ``s_valid``, ``flip`` and the sizes are the
+    reference's signature; the hats already carry them.
+    """
+    del s_valid, a_size, b_size, flip
+    i32 = torch.int32
+    dev = detect_sw.device
+    ma_w, mb_w, am_f, bm_f = hats
+    sp = detect_sw.shape[0]
+    words = torch.empty((sp // CH, inter_h * inter_w), dtype=i32, device=dev)
+    bit_of = torch.arange(CH, dtype=i32, device=dev)[:, None, None]
+    for ci in range(sp // CH):
+        lo, hi = ci * CH, (ci + 1) * CH
+        det = exact_tap_words(detect_sw[lo:hi], ma_w[lo:hi], mb_w[lo:hi],
+                              exact_acc).to(i32)
+        fm = (am_f[lo:hi, :, None] * bm_f[lo:hi, None, :]).to(i32)
+        hits = (det & fm) != 0
+        # distinct bits: the int32 sum is their OR (bit 31 included)
+        words[ci] = torch.bitwise_left_shift(hits.to(i32), bit_of).sum(
+            0, dtype=i32).reshape(-1)
+    return words.t().contiguous()

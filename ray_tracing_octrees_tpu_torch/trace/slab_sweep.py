@@ -10,6 +10,9 @@ packed table (``k + 0.5`` [+2048 where shadowed] or ``-1``) then maps to
 the image by one per-pixel warp, fused with shading in
 :mod:`~ray_tracing_octrees_tpu_torch.trace.warp_kernel`. Shadows come from
 a once-per-(scene, light) orthographic sweep, :func:`shadow_volume`.
+The exact DDA tracer's conservative seeds come from the same sweep over a
+dilated volume (:func:`sweep_seed`) and, for shadow rays, from an
+orthographic candidate bit field (:func:`build_shadow_seed`).
 
 Numerics follow the reference: the sweep's products take bf16 inputs,
 accumulate in f32 and round once to bf16 (XLA's
@@ -21,11 +24,13 @@ reduced-precision bf16 reduction switched off (:func:`_exact_matmul`).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
 from ray_tracing_octrees_tpu_torch.trace.warp_kernel import (
@@ -83,6 +88,11 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     vectorized f32 ``torch.sqrt`` is an ulp off on some inputs, where the
     card's is exact; through f64 both round once."""
     return torch.sqrt(x.double()).to(x.dtype)
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    """``v / |v|`` for a 3-vector, rounded alike on every device."""
+    return v / _sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
 
 
 # --------------------------------------------------------------------------
@@ -218,6 +228,13 @@ class SweepLayouts:
         return self.derived(key, lambda: _layout_volume(
             self.volume if which == "volume" else self.shadow,
             axis_world, flip, S, crop_lo))
+
+    def without_shadow(self) -> "SweepLayouts":
+        """These layouts for frames drawn without the shadow volume: the
+        same volume and the same kept copies."""
+        out = SweepLayouts(self.volume)
+        out._cache = self._cache
+        return out
 
     def derived(self, key: tuple, build):
         """A per-scene value built once by ``build()`` and kept under
@@ -421,6 +438,7 @@ def render_fast_frame(
     inter_w: Optional[int] = None,
     layouts: Optional[SweepLayouts] = None,
     device: DeviceLike = None,
+    fused: bool = True,
 ) -> torch.Tensor:
     """Slab-sweep frame with Lambert + shadow shading: f32[H, W, 4] rgba.
 
@@ -431,13 +449,28 @@ def render_fast_frame(
     from this ``volume`` and ``shadow_vol``) keeps the sweep-order copies
     across frames; without it they are built anew. ``grid_origin`` and
     ``voxel_size`` are best host values (a CUDA tensor costs a wait).
+
+    ``fused=False`` runs the per-pixel half as separate stages instead:
+    ray set-up, :func:`warp_kernel.warp_lookup` of the table, then the
+    shading in plain tensor ops (unquantized colours; the fused kernel
+    packs 8-bit ones).
     """
-    table, kscal, axis_world, has_shadow = _frame_table(
+    table, scal_np, axis_world, has_shadow = _frame_parts(
         volume, shadow_vol, grid_origin, voxel_size, camera_pos, view,
         fov_deg, aspect, light_dir, base_color, ambient, inter_h, inter_w,
         layouts, device)
-    out = warp_frame(table, kscal, axis_world, width, height, has_shadow)
-    return unpack_frame_rgb(out, width, height)
+    if fused:
+        out = warp_frame(table, frame_scalars(scal_np), axis_world, width,
+                         height, has_shadow)
+        return unpack_frame_rgb(out, width, height)
+    ih, iw = table.shape
+    scal = torch.as_tensor(scal_np, device=table.device)
+    lin, behind, dirs, d_s_n = _warp_setup(
+        scal, axis_world, ih, iw, width, height,
+        torch.as_tensor(_view_consts(scal_np), device=table.device))
+    w_val = _warp_values(table, lin, ih, iw, width, height)
+    return _finish_shade(w_val, behind, dirs, d_s_n, scal, width, height,
+                         has_shadow)
 
 
 def _frame_table(volume, shadow_vol, grid_origin, voxel_size, camera_pos,
@@ -447,6 +480,17 @@ def _frame_table(volume, shadow_vol, grid_origin, voxel_size, camera_pos,
     """The frame up to the per-pixel kernel: the packed f32[IH, IW] table
     from the sweep, the kernel's scalars (host f32[35]), the sweep axis
     and whether the table carries the shadow bit."""
+    table, scal_np, axis_world, has_shadow = _frame_parts(
+        volume, shadow_vol, grid_origin, voxel_size, camera_pos, view,
+        fov_deg, aspect, light_dir, base_color, ambient, inter_h, inter_w,
+        layouts, device)
+    return table, frame_scalars(scal_np), axis_world, has_shadow
+
+
+def _frame_parts(volume, shadow_vol, grid_origin, voxel_size, camera_pos,
+                 view, fov_deg, aspect, light_dir, base_color, ambient,
+                 inter_h, inter_w, layouts, device):
+    """(table, host frame scalars f32[43], sweep axis, shadow flag)."""
     dev = resolve_device(device)
     layouts = _scene_layouts(volume, shadow_vol, layouts, dev)
     origin = np.asarray(_host(grid_origin), np.float32)
@@ -469,7 +513,7 @@ def _frame_table(volume, shadow_vol, grid_origin, voxel_size, camera_pos,
     scal = torch.as_tensor(scal_np, device=dev)
     table = _sweep_all(vol_bf, scal, S, A, B, inter_h, inter_w, flip,
                        shadow_sw=shv)
-    return table, frame_scalars(scal_np), axis_world, has_shadow
+    return table, scal_np, axis_world, has_shadow
 
 
 def _scene_layouts(volume, shadow_vol, layouts, dev) -> SweepLayouts:
@@ -662,6 +706,238 @@ def _finish_shade(w_val, behind, dirs, d_s_n, scal, width: int, height: int,
     color = torch.where(hit[:, None], color, 0.0)
     rgba = torch.cat([color, torch.ones_like(color[:, :1])], -1)
     return rgba.reshape(height, width, 4)
+
+
+# --------------------------------------------------------------------------
+# conservative seeds of the exact DDA tracer
+# --------------------------------------------------------------------------
+
+SEED_DILATION = 3
+
+
+def dilate_occupancy(volume, radius: int = SEED_DILATION,
+                     device: DeviceLike = None) -> torch.Tensor:
+    """Chebyshev dilation of a 0/1 occupancy volume, padded by ``radius``
+    on every side: bf16[Z + 2r, Y + 2r, X + 2r] (0/1 is exact).
+
+    For :func:`sweep_seed`: a ray crossing an edge voxel can have its
+    slab-centre sample up to 2 cells outside the array, where the
+    resample taps would read 0 whatever the dilation; the pad keeps every
+    tap of every in-bounds crossing inside dilated cells. The grid origin
+    moves by -radius voxels; the seed functions do this themselves.
+    """
+    occ = torch.as_tensor(volume, device=resolve_device(device)) > 0
+    r = int(radius)
+    occ = F.pad(occ.to(torch.float32), (r,) * 6)
+    dil = F.max_pool3d(occ[None, None], 2 * r + 1, stride=1, padding=r)[0, 0]
+    return dil.to(torch.bfloat16)
+
+
+def _shift3(a: torch.Tensor, off_zyx) -> torch.Tensor:
+    """``result[i] = a[i - off]`` per axis, False past the edges."""
+    for ax, off in enumerate(off_zyx):
+        n = a.shape[ax]
+        if off == 0:
+            continue
+        out = torch.zeros_like(a)
+        if abs(off) < n:
+            if off > 0:
+                out.narrow(ax, off, n - off).copy_(a.narrow(ax, 0, n - off))
+            else:
+                out.narrow(ax, 0, n + off).copy_(a.narrow(ax, -off, n + off))
+        a = out
+    return a
+
+
+def light_blocked_volume(volume_dilated: torch.Tensor, to_light: tuple,
+                         doublings: int = 10) -> torch.Tensor:
+    """Conservative per-voxel "any solid toward the light" flag, on the
+    volume's device.
+
+    bool over :func:`dilate_occupancy`'s padded cube: False proves that a
+    ray from anywhere in the voxel toward ``to_light`` crosses no solid
+    voxel (the exact frame's shadow rays die at step 0 there); True means
+    "trace it". Directional doubling: B_0 = the dilated occupancy,
+    B_{k+1} = maxpool3(B_k) | shift(maxpool3(B_k), round(2^k * step))
+    with step = -to_light scaled to a largest axis of 1. The per-step 3^3
+    dilation absorbs the rounding of the fractional shift and the lateral
+    path within a step, so the union of the swept occupancy lies in B_K.
+    """
+    d = -np.asarray(to_light, np.float64)
+    step_xyz = d / max(np.max(np.abs(d)), 1e-12)
+    B = torch.as_tensor(volume_dilated) > 0
+    for k in range(doublings):
+        B = F.max_pool3d(B.to(torch.float32)[None, None], 3, stride=1,
+                         padding=1)[0, 0] > 0
+        off = np.rint((2.0 ** k) * step_xyz).astype(np.int64)
+        # a voxel reads the region the ray reaches: x is occludable if
+        # x + 2^k * step is in B (zyx order)
+        B = B | _shift3(B, (-int(off[2]), -int(off[1]), -int(off[0])))
+    return B
+
+
+def sweep_seed(volume_dilated, grid_origin, voxel_size, camera_pos, view,
+               fov_deg: float, aspect: float, width: int, height: int,
+               layouts: Optional[SweepLayouts] = None,
+               device: DeviceLike = None):
+    """Conservative per-pixel seeds of the exact DDA tracer from one sweep
+    of the dilated grid: (live bool[N], t_seed f32[N], exterior bool).
+
+    ``volume_dilated`` is :func:`dilate_occupancy`'s; ``grid_origin`` is
+    the original grid's (the pad shift happens here). ``layouts``: a
+    :class:`SweepLayouts` over ``volume_dilated``, kept across frames.
+
+    For an exterior camera (exterior=True): live[i] False proves that
+    ray i hits no solid voxel (the dilation makes the 0.5-threshold
+    bilinear slab test conservative while the frame's lateral slope is at
+    most 4, checked here on the host), and t_seed[i] is at most the
+    world t at which ray i first enters a solid voxel (2.5 slabs of
+    margin cover the slab-centre quantization). An interior eye, a
+    cropped sweep or a steeper frame gives (all live, zeros, False):
+    callers then ignore the seeds. The warp to pixels runs
+    :func:`warp_kernel.warp_lookup`.
+    """
+    dev = resolve_device(device)
+    if layouts is None:
+        layouts = SweepLayouts(torch.as_tensor(volume_dilated, device=dev))
+    vol = layouts.volume
+    vox = float(_host(voxel_size))
+    origin_p = (np.asarray(_host(grid_origin), np.float32)
+                - np.float32(SEED_DILATION) * np.float32(vox))
+    axis_world, flip, (S, A, B), eyes, window, crop_lo = _sweep_geometry(
+        vol.shape, origin_p, vox, camera_pos, view)
+    n = width * height
+    cam_vox = (np.asarray(camera_pos, np.float64)
+               - np.asarray(origin_p, np.float64)) / vox
+    dz_, dy_, dx_ = vol.shape[:3]
+    inside = bool((0 <= cam_vox[0] <= dx_) and (0 <= cam_vox[1] <= dy_)
+                  and (0 <= cam_vox[2] <= dz_))
+    a_min, a_max, b_min, b_max = window
+    eye_s, eye_a, eye_b, z0 = eyes
+    span = abs(z0 - eye_s)
+    slope_max = max(abs(a_min - eye_a), abs(a_max - eye_a),
+                    abs(b_min - eye_b), abs(b_max - eye_b)) / max(span, 1e-9)
+    if inside or crop_lo != 0 or slope_max > 4.0:
+        return (torch.ones(n, dtype=torch.bool, device=dev),
+                torch.zeros(n, dtype=torch.float32, device=dev), False)
+    inter_h, inter_w = _auto_inter(window)
+    vol_bf = layouts.get("volume", axis_world, bool(flip), S, 0)
+    scal_np = _frame_scalars_np(eye_s, eye_a, eye_b, z0, a_min, a_max, b_min,
+                                b_max, fov_deg, aspect, vox, S, origin_p,
+                                np.asarray(camera_pos, np.float32), view)
+    scal = torch.as_tensor(scal_np, device=dev)
+    packed = _sweep_all(vol_bf, scal, S, A, B, inter_h, inter_w, bool(flip))
+    lin, behind, _, d_s_n = _warp_setup(
+        scal, axis_world, inter_h, inter_w, width, height,
+        torch.as_tensor(_view_consts(scal_np), device=dev))
+    w_val = _warp_values(packed, lin, inter_h, inter_w, width, height)
+    live = (w_val >= 0.0) & ~behind
+    # the dilated hit slab's entry, 2.5 slabs earlier along the ray
+    # (toward the eye: sign(d_s_n) is the travel direction in slabs)
+    z_f = w_val - 2.5 * torch.sign(d_s_n)
+    t_seed = (z_f - scal[0]) * scal[10] / d_s_n
+    t_seed = torch.where(live, torch.clamp(t_seed, min=0.0), 0.0)
+    return live, t_seed, True
+
+
+@dataclasses.dataclass(frozen=True)
+class ShadowSeed:
+    """Per-(scene, light) sheared candidate bit field for shadow rays."""
+
+    bits2d: torch.Tensor  # i32[OA * OB, C] travel-slab candidate words
+    axis_world: int       # dominant |D| axis of the shadow direction (xyz)
+    flip: bool            # True when the shadow direction descends the axis
+    da: float             # lateral drift (a axis) per +1 travel slab
+    db: float
+    pa_lo: int
+    pb_lo: int
+    S: int                # travel-slab count (sweep extent of the volume)
+    OA: int
+    OB: int
+    d_s_abs: float        # |D_s| of the unit shadow direction (world)
+
+
+def build_shadow_seed(volume_dilated, to_light,
+                      device: DeviceLike = None) -> ShadowSeed:
+    """The seed for shadow rays travelling toward ``to_light``, once per
+    (scene, light) like :func:`shadow_volume`. ``volume_dilated`` is
+    :func:`dilate_occupancy`'s. Each ray's lateral column is constant
+    along the light direction, so one orthographic sweep marks, per
+    column and travel slab, whether the dilated footprint holds solid."""
+    f32 = torch.float32
+    dev = resolve_device(device)
+    D = np.asarray(to_light, np.float64)
+    D = D / np.linalg.norm(D)
+    axis_world = int(np.argmax(np.abs(D)))
+    sel = _AXIS_SELECTORS[axis_world]
+    d_s = float(D @ np.asarray(sel[0], np.float64))
+    d_a = float(D @ np.asarray(sel[1], np.float64))
+    d_b = float(D @ np.asarray(sel[2], np.float64))
+    flip = d_s < 0.0
+    da = d_a / abs(d_s)   # per +1 slab along the travel direction
+    db = d_b / abs(d_s)
+    vol = torch.as_tensor(volume_dilated, device=dev).permute(
+        *_TO_SWEEP[axis_world])
+    S, A, B = (int(x) for x in vol.shape)
+    vols = vol.flip(0) if flip else vol    # vols[m] = slab at travel step m
+    pa_lo = int(math.ceil((S - 1) * max(da, 0.0))) + 1
+    pa_hi = int(math.ceil((S - 1) * max(-da, 0.0))) + 1
+    pb_lo = int(math.ceil((S - 1) * max(db, 0.0))) + 1
+    pb_hi = int(math.ceil((S - 1) * max(-db, 0.0))) + 1
+    # column of lateral a at travel step m: o = a - m * da + pa_lo
+    ma, mb, _, _ = _shadow_hats(S, A, B, -da, -db, pa_lo, pa_hi, pb_lo,
+                                pb_hi, dev)
+    # bf16 values, f32 products and sums, a bf16 intermediate
+    with _exact_matmul():
+        sh = torch.einsum("soa,sab->sob", ma.to(f32),
+                          vols.to(torch.bfloat16).to(f32))
+        sh = torch.einsum("sob,spb->sop", sh.to(torch.bfloat16).to(f32),
+                          mb.to(f32))
+    hits = sh >= 0.5
+    OA, OB = int(hits.shape[1]), int(hits.shape[2])
+    C = -(-S // 32)
+    if C * 32 != S:
+        hits = torch.cat([hits, torch.zeros((C * 32 - S, OA, OB),
+                                            dtype=torch.bool, device=dev)])
+    hb = hits.reshape(C, 32, OA, OB).to(torch.int32)
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)[None, :, None,
+                                                            None]
+    # distinct bits: the int32 sum is their OR (bit 31 included)
+    words = torch.bitwise_left_shift(hb, shifts).sum(1, dtype=torch.int32)
+    bits2d = words.permute(1, 2, 0).reshape(OA * OB, C).contiguous()
+    return ShadowSeed(bits2d=bits2d, axis_world=axis_world, flip=bool(flip),
+                      da=float(da), db=float(db), pa_lo=pa_lo, pb_lo=pb_lo,
+                      S=S, OA=OA, OB=OB, d_s_abs=abs(d_s))
+
+
+def query_shadow_seed(seed: ShadowSeed, shadow_o: torch.Tensor, grid_origin,
+                      voxel_size):
+    """Conservative (live bool[N], t_start f32[N]) for shadow origins
+    f32[N, 3], on their device. ``grid_origin`` / ``voxel_size`` are the
+    original grid's. live=False proves the ray hits nothing; t_start
+    lower-bounds its first-hit t. Out-of-field rays stay live at 0."""
+    f32, i32 = torch.float32, torch.int32
+    dev = shadow_o.device
+    vs = torch.as_tensor(voxel_size, dtype=f32, device=dev).reshape(())
+    origin_p = (torch.as_tensor(grid_origin, dtype=f32, device=dev)
+                - np.float32(SEED_DILATION) * vs)
+    pv = (shadow_o - origin_p[None, :]) / vs        # dilated-volume voxels
+    ax = {0: (0, 1, 2), 1: (1, 0, 2), 2: (2, 0, 1)}[seed.axis_world]
+    s_p, a_p, b_p = pv[:, ax[0]], pv[:, ax[1]], pv[:, ax[2]]
+    m_p = (float(seed.S) - s_p) if seed.flip else s_p
+    col_a = torch.round(a_p - m_p * seed.da + float(seed.pa_lo)).to(i32)
+    col_b = torch.round(b_p - m_p * seed.db + float(seed.pb_lo)).to(i32)
+    in_range = ((col_a >= 0) & (col_a < seed.OA) & (col_b >= 0)
+                & (col_b < seed.OB) & (m_p < float(seed.S)))
+    row = (col_a * seed.OB + col_b).clamp(0, seed.OA * seed.OB - 1)
+    words = seed.bits2d[row.long()]
+    m_lo = (torch.floor(m_p).to(i32) - 1).clamp(0, seed.S)
+    has, o = first_set_from(words, m_lo)
+    live = has | ~in_range
+    # the candidate slab's entry less a full-slab cushion, in world t
+    t_seed = _fdiv((o.to(f32) - m_p - 1.25) * vs, seed.d_s_abs)
+    t_seed = torch.where(has & in_range, torch.clamp(t_seed, min=0.0), 0.0)
+    return live, t_seed
 
 
 # --------------------------------------------------------------------------

@@ -1,12 +1,15 @@
-"""Sweep-exact machinery: widened detection hats and exact consume rounds.
+"""Sweep-exact octree tracer: the exact tracer's first hit through the sweep.
 
-Counterpart of the part of ``ray_tracing_octrees_tpu/trace/
-sweep_exact.py`` that the exact fast frame (:mod:`.fast_exact`) runs:
+Counterpart of ``ray_tracing_octrees_tpu/trace/sweep_exact.py``. The
+DDA tracer (:mod:`.octree_trace`) walks every ray; this module reaches
+the same first hits, the reference's intersectOctreeIterative semantics
+(RayTracerBVH.cpp:239-327), through the slab-sweep machinery:
 
 1. DETECTION hats whose per-slab footprint is WIDENED by the texel
-   half-cell, so a texel's candidate bits are a proven superset of the
-   solid crossings of every pixel ray through its lattice cell (bit o =
-   "some cell the ray crosses in slab o is solid").
+   half-cell, so a texel's candidate bits (``mesh_grid._sweep_candidates``)
+   are a proven superset of the solid crossings of every pixel ray
+   through its lattice cell (bit o = "some cell the ray crosses in slab o
+   is solid").
 2. CONSUME rounds on the actual pixel rays: each round takes one
    candidate slab per unresolved ray, fetches the packed ta x tb
    neighbourhood occupancy of its footprint (one lookup) and runs exact
@@ -14,10 +17,21 @@ sweep_exact.py`` that the exact fast frame (:mod:`.fast_exact`) runs:
    so slab order is t order: the first slab with a valid solid crossing
    holds the nearest hit, t = max(entry, 0) — the reference's
    tNear-of-solid-leaf semantics (RayTracerBVH.cpp:283-287).
+3. The leaf node of the hit (for the normalize(p - nodeCenter) normal)
+   from one lookup of the leaf volume (``core/octree.build_leaf_volume``).
+
+Shadow rays share one direction, so their detection field is an
+orthographic light-space sweep built once per scene and light
+(:func:`build_shadow_field`); only the consume rounds run per frame.
+The per-pixel dead test (a texel with no candidate at all) runs through
+:func:`warp_kernel.warp_lookup` on the texel any-flag table.
 
 Exactness envelope (host gate, :func:`sweep_exact_setup`): the eye
 outside the volume along the sweep axis, and footprints within a 3-tap
-window per axis, or 5 taps on one axis.
+window per axis, or 5 taps on one axis. Where the reference runs its
+rounds on fixed-width ladders and counts the rows past a stage as
+overflow, the port compacts to the unresolved rows every round, so
+overflow is 0 by construction.
 """
 
 from __future__ import annotations
@@ -27,11 +41,17 @@ import math
 import numpy as np
 import torch
 
+import dataclasses
+from typing import Optional
+
 from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
+from ray_tracing_octrees_tpu_torch.trace import mesh_grid
 from ray_tracing_octrees_tpu_torch.trace.slab_sweep import (
-    _SAB_IDX, _auto_inter, _fdiv, _frame_scalars_np, _host, _scene_layouts,
-    _sqrt, _sweep_geometry, first_set_from,
+    _AXIS_SELECTORS, _SAB_IDX, _auto_inter, _fdiv, _frame_scalars_np, _host,
+    _scene_layouts, _sqrt, _sweep_geometry, _unit, _view_consts,
+    first_set_from,
 )
+from ray_tracing_octrees_tpu_torch.trace.warp_kernel import warp_lookup
 
 _BIG = 3.0e38
 _DEG = 1e-12
@@ -167,6 +187,38 @@ def _fmask(p_all, ext, r: int, weights):
         da = float(i - r)
         m = m + w * ((lo <= da) & (da <= hi)).to(torch.float32)
     return m
+
+
+def _ortho_hats(sa: float, sb: float, aa_min: float, aa_span: float,
+                ab_min: float, ab_span: float, sp: int, s_valid: int,
+                a_size: int, b_size: int, inter_h: int, inter_w: int,
+                flip: bool, ta: int = 3, tb: int = 3, device=None):
+    """Detection hats of the orthographic light-space sweep.
+
+    Shadow rays share one direction, so a ray is named by its intercept
+    (alpha_a, alpha_b): its lateral position at slab k is alpha + slope *
+    (k + 0.5) with the shared slope (sa, sb). The footprint half-width is
+    the constant |slope| / 2 and the texel-cell widening exactly the half
+    lattice spacing. Returns (ma_w, mb_w, am, bm) as
+    :func:`_widened_perspective_hats`.
+    """
+    f32 = torch.float32
+    aa = aa_min + _fdiv(aa_span * (torch.arange(
+        inter_h, dtype=f32, device=device) + 0.5), inter_h)
+    ab = ab_min + _fdiv(ab_span * (torch.arange(
+        inter_w, dtype=f32, device=device) + 0.5), inter_w)
+    ha = 0.5 * aa_span / inter_h
+    hb = 0.5 * ab_span / inter_w
+    o_all = torch.arange(sp, dtype=f32, device=device)
+    k_all = (float(s_valid) - 1.0 - o_all) if flip else o_all
+    pa_all = aa[None, :] + sa * (k_all[:, None] + 0.5)       # [sp, IH]
+    pb_all = ab[None, :] + sb * (k_all[:, None] + 0.5)       # [sp, IW]
+    ra, rb, wa_l, wb_l = _tap_weights(ta, tb)
+    ma_w = _taps(pa_all, a_size, ra, wa_l)
+    mb_w = _taps(pb_all, b_size, rb, wb_l)
+    am = _fmask(pa_all, float(np.float32(abs(sa) * 0.5 + ha)), ra, wa_l)
+    bm = _fmask(pb_all, float(np.float32(abs(sb) * 0.5 + hb)), rb, wb_l)
+    return ma_w, mb_w, am, bm
 
 
 # --------------------------------------------------------------------------
@@ -407,3 +459,354 @@ def _pixel_rays_sab(scal, consts, axis_world: int, width: int, height: int):
                             indexing="ij")
     return _rays_sab_from_xy(xg.reshape(-1), yg.reshape(-1), scal, consts,
                              axis_world, width, height)
+
+
+# --------------------------------------------------------------------------
+# the camera-independent shadow field (once per scene and light)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShadowField:
+    """Exact shadow-ray field for one (scene, light).
+
+    ``bits[texel, word]``: the per-slab candidate bit field of the
+    light-space texel lattice (orthographic sweep along the light's
+    dominant axis); ``nb9``: the packed neighbourhood occupancy in the
+    same layout; ``l_sab``: the shared ray direction (-light) in (s, a, b)
+    components of the light sweep, world-length parametrization (voxel
+    coordinates per world unit).
+    """
+
+    bits: torch.Tensor
+    nb9: torch.Tensor
+    l_sab: torch.Tensor
+    axis_l: int
+    flip_l: bool
+    S: int
+    A: int
+    B: int
+    sp: int
+    aa_min: float
+    aa_span: float
+    ab_min: float
+    ab_span: float
+    inter_h: int
+    inter_w: int
+    sa: float
+    sb: float
+    ta: int = 3
+    tb: int = 3
+
+
+def build_shadow_field(volume, light_dir, voxel_size, max_inter: int = 1024,
+                       layouts=None,
+                       device: DeviceLike = None) -> Optional[ShadowField]:
+    """The exact shadow-ray detection field, once per scene and light, or
+    None when the light's lateral slope leaves no room for the lattice pad
+    (|slope| / 2 + pad past the tap window): callers then trace shadows
+    with the DDA. ``layouts``: the scene's :class:`slab_sweep.SweepLayouts`
+    (its sweep-order volume and packed neighbourhood are kept there)."""
+    dev = resolve_device(device)
+    layouts = _scene_layouts(volume, ..., layouts, dev)
+    l = np.asarray(light_dir, np.float64)
+    l = l / np.linalg.norm(l)
+    d_world = -l                                     # ray direction
+    axis_l = int(np.argmax(np.abs(d_world)))
+    sel = _AXIS_SELECTORS[axis_l]
+    rd = np.array([d_world @ np.asarray(c, np.float64) for c in sel])
+    rd = rd / float(_host(voxel_size))               # world-t parametrization
+    flip_l = bool(rd[0] < 0)
+    dz, dy, dx = layouts.volume.shape[:3]
+    S, A, B = {0: (dx, dy, dz), 1: (dy, dx, dz), 2: (dz, dx, dy)}[axis_l]
+    sa = float(rd[1] / rd[0])
+    sb = float(rd[2] / rd[0])
+
+    # intercept bounds over any origin within the grid + a 4-voxel margin
+    m = 4.0
+    aa_lo = -m - max(sa * -m, sa * (S + m))
+    aa_hi = (A + m) - min(sa * -m, sa * (S + m))
+    ab_lo = -m - max(sb * -m, sb * (S + m))
+    ab_hi = (B + m) - min(sb * -m, sb * (S + m))
+    aa_span = aa_hi - aa_lo
+    ab_span = ab_hi - ab_lo
+
+    def dim(span):
+        t = int(math.ceil(6.0 * max(span, 1.0) / 128.0)) * 128
+        return max(128, min(max_inter, t))
+
+    IHs, IWs = dim(aa_span), dim(ab_span)
+    taps = _pick_taps(abs(sa) * 0.5 + 0.5 * aa_span / IHs,
+                      abs(sb) * 0.5 + 0.5 * ab_span / IWs)
+    if taps is None:
+        return None
+    ta, tb = taps
+    occ_sw = layouts.get("volume", axis_l, flip_l, S, 0)
+    sp = occ_sw.shape[0]
+    hats = _ortho_hats(sa, sb, aa_lo, aa_span, ab_lo, ab_span, sp, S, A, B,
+                       IHs, IWs, flip_l, ta, tb, dev)
+    bits = mesh_grid._sweep_candidates(
+        (occ_sw > 0).to(torch.bfloat16), hats, S, A, B, IHs, IWs, flip_l,
+        exact_acc=(ta > 3 or tb > 3))
+    return ShadowField(
+        bits=bits, nb9=_nb9_for(layouts, axis_l, flip_l, S, ta, tb),
+        l_sab=torch.as_tensor(rd, dtype=torch.float32, device=dev),
+        axis_l=axis_l, flip_l=flip_l, S=S, A=A, B=B, sp=sp,
+        aa_min=float(aa_lo), aa_span=float(aa_span), ab_min=float(ab_lo),
+        ab_span=float(ab_span), inter_h=IHs, inter_w=IWs, sa=sa, sb=sb,
+        ta=ta, tb=tb)
+
+
+# --------------------------------------------------------------------------
+# the frame
+# --------------------------------------------------------------------------
+
+def _texel_map(rd3, scal, flip: bool, IH: int, IW: int):
+    """(geo_ok, ti, tj): whether each ray points into the sweep and meets
+    the reference plane inside the lattice window, and its texel there
+    (the hat lattice's own formulas)."""
+    eye_s, eye_a, eye_b, z0 = scal[0], scal[1], scal[2], scal[3]
+    a_min, a_max, b_min, b_max = scal[4], scal[5], scal[6], scal[7]
+    rd_s = rd3[0]
+    forward = (rd_s < 0) if flip else (rd_s > 0)
+    safe = torch.where(rd_s.abs() < _DEG, 1.0, rd_s)
+    ua = eye_a + (z0 - eye_s) * rd3[1] / safe
+    ub = eye_b + (z0 - eye_s) * rd3[2] / safe
+    in_win = (ua >= a_min) & (ua <= a_max) & (ub >= b_min) & (ub <= b_max)
+    ti = torch.floor((ua - a_min) / (a_max - a_min) * IH).to(
+        torch.int32).clamp(0, IH - 1)
+    tj = torch.floor((ub - b_min) / (b_max - b_min) * IW).to(
+        torch.int32).clamp(0, IW - 1)
+    return forward & in_win, ti, tj
+
+
+
+def _primary_core(cfg, scal_np, width: int, height: int):
+    """Detection sweep + exact consume of every pixel ray that can hit.
+
+    Returns dict over the live rows (pixels that pass the dead test):
+    pix (int64 pixel index), hit, t (world), ks / ca / cb (hit voxel in
+    sweep coordinates), dirs1 / origins1 (world components per row),
+    rounds, unresolved and syncs (host syncs: the live-row compaction and
+    one per consume round).
+
+    The dead test (the pixel's texel has no candidate slab at all) looks
+    the texel any-flag table (f32 +-1) up through
+    :func:`warp_kernel.warp_lookup` with ``lin = (ti << 10) | tj``.
+    """
+    occ_sw, nb9 = cfg["occ_sw"], cfg["nb9"]
+    axis_world, flip = cfg["axis_world"], cfg["flip"]
+    S, A, B, IH, IW = cfg["S"], cfg["A"], cfg["B"], cfg["IH"], cfg["IW"]
+    ta, tb = cfg["ta"], cfg["tb"]
+    dev = occ_sw.device
+    sp = occ_sw.shape[0]
+    scal = torch.as_tensor(scal_np, device=dev)
+    consts = torch.as_tensor(_view_consts(scal_np), device=dev)
+    vs = scal[10]
+
+    hats = _widened_perspective_hats(scal, sp, S, A, B, IH, IW, flip, ta, tb)
+    bits_tex = mesh_grid._sweep_candidates(
+        (occ_sw > 0).to(torch.bfloat16), hats, S, A, B, IH, IW, flip,
+        exact_acc=(ta > 3 or tb > 3))
+
+    rd3 = tuple(c / vs for c in _pixel_rays_sab(scal, consts, axis_world,
+                                               width, height))
+    geo_ok, ti, tj = _texel_map(rd3, scal, flip, IH, IW)
+    any_t = torch.where((bits_tex != 0).any(dim=1), 1.0, -1.0).reshape(IH, IW)
+    lin = torch.where(geo_ok, (ti << 10) | tj, -1).reshape(height, width)
+    any_pix = warp_lookup(any_t, lin).reshape(-1)
+    pix = torch.nonzero(geo_ok & (any_pix >= 0.0)).squeeze(1)
+    m = int(pix.shape[0])
+    rd3 = tuple(c[pix] for c in rd3)
+    ro3 = tuple(scal[c].expand(m) for c in range(3))
+    texrow = (ti * IW + tj)[pix].long()
+    st, rounds = _consume_ladder(
+        bits_tex[texrow], torch.zeros(m, dtype=torch.int32, device=dev), ro3,
+        rd3, nb9, S, A, B, flip, sp + 8, ta, tb)
+    inv_perm = [_SAB_IDX[axis_world].index(c) for c in range(3)]
+    return dict(
+        pix=pix, hit=st["hit"], t=st["t"], ks=st["ks"], ca=st["ca"],
+        cb=st["cb"], rounds=rounds,
+        unresolved=int((~st["resolved"] & ~st["hit"]).sum()),
+        syncs=2 + rounds,
+        dirs1=tuple(rd3[inv_perm[c]] * vs for c in range(3)),
+        origins1=tuple(scal[15 + c].expand(m) for c in range(3)))
+
+
+def _leaf_normal(hit, t, ks, ca, cb, origins3, dirs3, leaf_flat, leaf_S: int,
+                 axis_world: int, org3, vs):
+    """Hit point and leaf-node normal normalize(p - nodeCenter)
+    (RayTracerBVH.cpp:283-287) from one leaf-volume lookup at the hit
+    voxel; (point3, nrm3) as xyz tuples of [M] tensors."""
+    f32, i32 = torch.float32, torch.int32
+    inv_perm = [_SAB_IDX[axis_world].index(c) for c in range(3)]
+    sab = (ks, ca, cb)
+    v3 = [sab[inv_perm[c]] for c in range(3)]        # voxel xyz
+    idx = (v3[2] * leaf_S + v3[1]) * leaf_S + v3[0]
+    byte = torch.take(leaf_flat, idx.clamp(0, leaf_flat.numel() - 1).long()
+                      ).to(i32)
+    level = (byte >> 1) & 15
+    csize = torch.bitwise_left_shift(torch.ones_like(level), level).to(f32)
+    point3, nrm3 = [], []
+    for c in range(3):
+        p_c = origins3[c] + dirs3[c] * t
+        cmin = ((v3[c] >> level) << level).to(f32)
+        cen = org3[c] + (cmin + 0.5 * csize) * vs
+        point3.append(p_c)
+        nrm3.append(p_c - cen)
+    n2 = nrm3[0] * nrm3[0] + nrm3[1] * nrm3[1] + nrm3[2] * nrm3[2]
+    inv = 1.0 / torch.clamp(_sqrt(n2), min=1e-30)
+    return point3, [torch.where(hit, n_c * inv, 0.0) for n_c in nrm3]
+
+
+def _shadow_occluded(field: ShadowField, o_vox3, s_live):
+    """Exact occlusion of shadow rays (the field's shared direction) from
+    origins ``o_vox3`` (voxel xyz components of [M] tensors); rows with
+    ``s_live`` False are not traced. Returns (occluded bool[M], rounds,
+    unresolved, host syncs)."""
+    i32 = torch.int32
+    f = field
+    ro3 = tuple(o_vox3[i] for i in _SAB_IDX[f.axis_l])
+    m = ro3[0].shape[0]
+    aa = ro3[1] - f.sa * ro3[0]
+    ab = ro3[2] - f.sb * ro3[0]
+    ti = torch.floor(_fdiv(aa - f.aa_min, f.aa_span) * f.inter_h).to(
+        i32).clamp(0, f.inter_h - 1)
+    tj = torch.floor(_fdiv(ab - f.ab_min, f.ab_span) * f.inter_w).to(
+        i32).clamp(0, f.inter_w - 1)
+    k0 = torch.floor(ro3[0]).to(i32)
+    o0 = (f.S - 1 - k0) if f.flip_l else k0
+    rows = torch.nonzero(s_live & (o0 < f.S)).squeeze(1)
+    n = int(rows.shape[0])
+    st, rounds = _consume_ladder(
+        f.bits[(ti * f.inter_w + tj)[rows].long()],
+        torch.clamp(o0[rows], min=0), tuple(r[rows] for r in ro3),
+        tuple(f.l_sab[i].expand(n) for i in range(3)), f.nb9, f.S, f.A, f.B,
+        f.flip_l, f.sp + 8, f.ta, f.tb)
+    occluded = torch.zeros(m, dtype=torch.bool, device=s_live.device)
+    occluded[rows] = st["hit"]
+    return (occluded, rounds,
+            int((~st["resolved"] & ~st["hit"]).sum()), 2 + rounds)
+
+
+def _trace_pixels(cfg, scal_np, leaf_vol, width: int, height: int):
+    """Full-width primary trace for one pose inside the envelope: dict(hit,
+    t, point, normal) of [N] / [N, 3] tensors and the stats."""
+    res = _primary_core(cfg, scal_np, width, height)
+    dev = res["hit"].device
+    f32 = torch.float32
+    t1 = torch.where(res["hit"], res["t"], 0.0)
+    org3 = tuple(float(v) for v in scal_np[12:15])
+    point3, nrm3 = _leaf_normal(
+        res["hit"], t1, res["ks"], res["ca"], res["cb"], res["origins1"],
+        res["dirs1"], leaf_vol.reshape(-1), int(leaf_vol.shape[0]),
+        cfg["axis_world"], org3, float(scal_np[10]))
+    N = width * height
+    pix = res["pix"]
+    hit = torch.zeros(N, dtype=torch.bool, device=dev)
+    t = torch.zeros(N, dtype=f32, device=dev)
+    point = torch.as_tensor(scal_np[15:18], device=dev).repeat(N, 1)
+    nrm = torch.zeros((N, 3), dtype=f32, device=dev)
+    hit[pix] = res["hit"]
+    t[pix] = t1
+    point[pix] = torch.stack(point3, dim=1)
+    nrm[pix] = torch.stack(nrm3, dim=1)
+    return dict(hit=hit, t=t, point=point, normal=nrm, rounds=res["rounds"],
+                overflow=0, unresolved=res["unresolved"], syncs=res["syncs"])
+
+
+def _frame_scal(cfg, fov_deg, aspect, light_dir=(0.0, 0.0, 0.0),
+                base_color=(0.0, 0.0, 0.0), ambient=(0.0, 0.0, 0.0)):
+    scal = cfg["scal_np"].copy()
+    scal[8], scal[9] = fov_deg, aspect
+    scal[34:37] = light_dir
+    scal[37:40] = base_color
+    scal[40:43] = ambient
+    return scal
+
+
+def trace_pixels_sweep_exact(volume, leaf_vol, grid_origin, voxel_size,
+                             cam_pos, view, width: int, height: int,
+                             fov_deg: float, aspect: float, layouts=None,
+                             device: DeviceLike = None):
+    """Exact per-pixel primary trace (``trace_octree`` semantics) through
+    the sweep: dict(hit bool[N], t f32[N], point f32[N, 3], normal
+    f32[N, 3], rounds, overflow, unresolved, syncs), or None outside the
+    exactness envelope (callers fall back to the DDA tracer).
+    ``leaf_vol`` is ``core/octree.build_leaf_volume``'s; ``layouts`` the
+    scene's :class:`slab_sweep.SweepLayouts`."""
+    ok, cfg = sweep_exact_setup(volume, grid_origin, voxel_size, cam_pos,
+                                view, layouts=layouts, device=device)
+    if not ok:
+        return None
+    return _trace_pixels(cfg, _frame_scal(cfg, fov_deg, aspect),
+                         leaf_vol.to(cfg["occ_sw"].device), width, height)
+
+
+def render_exact_frame(volume, leaf_vol, grid_origin, voxel_size, cam_pos,
+                       view, width: int, height: int, fov_deg: float,
+                       aspect: float, light_dir=(-1.0, -1.0, -1.0),
+                       base_color=(1.0, 0.8, 0.6), ambient=(0.1, 0.1, 0.1),
+                       shadows: bool = True,
+                       shadow_field: Optional[ShadowField] = None,
+                       layouts=None, device: DeviceLike = None):
+    """Exact full frame (primary + per-hit shadow ray toward the light),
+    the image of ``models/octree_raytracer.py::render_octree_image``:
+    (img f32[H, W, 4], stats), or None when the pose or the light is
+    outside the sweep-exact envelope.
+
+    ``stats``: rounds / s_rounds (consume rounds of the primary and the
+    shadow rays), overflow / s_overflow (0: every row is consumed to its
+    end), unresolved / s_unresolved, live (primary rows consumed) and
+    syncs (host syncs of the frame). ``shadow_field`` is
+    :func:`build_shadow_field`'s for this volume and light (built here
+    when None); ``layouts`` the scene's :class:`slab_sweep.SweepLayouts`.
+    """
+    dev = resolve_device(device)
+    layouts = _scene_layouts(volume, ..., layouts, dev)
+    ok, cfg = sweep_exact_setup(layouts.volume, grid_origin, voxel_size,
+                                cam_pos, view, layouts=layouts, device=dev)
+    if not ok:
+        return None
+    if shadows and shadow_field is None:
+        shadow_field = build_shadow_field(layouts.volume, light_dir,
+                                          voxel_size, layouts=layouts,
+                                          device=dev)
+        if shadow_field is None:
+            return None
+    scal_np = _frame_scal(cfg, fov_deg, aspect, light_dir, base_color,
+                          ambient)
+    res = _primary_core(cfg, scal_np, width, height)
+    scal = torch.as_tensor(scal_np, device=dev)
+    org3 = tuple(scal[12 + c] for c in range(3))
+    vs = scal[10]
+    hit1 = res["hit"]
+    t1 = torch.where(hit1, res["t"], 0.0)
+    point3, nrm3 = _leaf_normal(
+        hit1, t1, res["ks"], res["ca"], res["cb"], res["origins1"],
+        res["dirs1"], leaf_vol.to(dev).reshape(-1), int(leaf_vol.shape[0]),
+        cfg["axis_world"], org3, vs)
+
+    # shade() (RayTracerBVH.cpp:331-336), as render_octree_image's
+    l = _unit(scal[34:37])
+    ndotl = torch.clamp(-(nrm3[0] * l[0] + nrm3[1] * l[1] + nrm3[2] * l[2]),
+                        min=0.0)
+    color3 = [torch.where(hit1, scal[37 + c] * ndotl + scal[40 + c], 0.0)
+              for c in range(3)]
+    stats = dict(rounds=res["rounds"], overflow=0,
+                 unresolved=res["unresolved"], s_rounds=0, s_overflow=0,
+                 s_unresolved=0, live=int(res["pix"].shape[0]),
+                 syncs=res["syncs"])
+    if shadows:
+        o_vox3 = tuple((point3[c] + nrm3[c] * (vs * 2.0) - org3[c]) / vs
+                       for c in range(3))
+        occluded, s_rounds, s_unres, s_syncs = _shadow_occluded(
+            shadow_field, o_vox3, hit1)
+        color3 = [torch.where(occluded, scal[40 + c], color3[c])
+                  for c in range(3)]
+        stats.update(s_rounds=s_rounds, s_unresolved=s_unres,
+                     syncs=stats["syncs"] + s_syncs)
+    N = width * height
+    img = torch.zeros((N, 4), dtype=torch.float32, device=dev)
+    img[:, 3] = 1.0
+    img[res["pix"], :3] = torch.stack(color3, dim=1)
+    return img.reshape(height, width, 4), stats

@@ -119,8 +119,18 @@ def test_record_has_the_jax_keys(record):
     r2 = record["exact_radius_2"]
     assert r2["path"] == "fast_exact" and r2["radius_f"] == 2.0
     assert r2["frame_ms"] > 0 and r2["stats"]["overflow"] == 0
-    assert record["exact_tracer_path"] is None
-    assert "not ported" in record["exact_skip_reason"]
+    # the headline pose is outside fast-exact's and sweep-exact's
+    # envelopes; the DDA ladder draws it, as in the JAX bench
+    assert record["exact_tracer_path"] == "dda"
+    assert record["exact_skip_reason"] is None
+    assert [r.split()[0] for r in record["exact_tried"]] == ["fast_exact",
+                                                             "sweep"]
+    head = record["exact_headline"]
+    assert record["exact_tracer_mrays"] > 0 and head["frame_ms"] > 0
+    assert len(head["frame_ms_windows"]) == 3
+    assert head["stats"]["syncs"] > head["stats"]["compactions"] > 0
+    assert 0 < head["stats"]["primary_steps_p50"] <= head["stats"][
+        "primary_steps_max"]
     assert record["metric"] == f"raytrace_sphere{DIM}_{H}p_primary+shadow"
     assert record["backend"] == "cpu" and record["unit"] == "Mrays/s"
     assert 0 < record["hit_fraction"] < 1

@@ -3,7 +3,9 @@
 form, ``warp_lookup`` in both forms and ``warp_lookup_multi``
 (csrc/warp_lookup.cu), and the warp experiments' four kernels
 (csrc/exp_warp.cu), in every form, through every wrapper of
-``ray_tracing_octrees_tpu_torch/tools``.
+``ray_tracing_octrees_tpu_torch/tools``; and the exact tracers on the
+card against the CPU (the DDA, the sweep-exact frame and its dead test
+through ``warp_lookup``, ``OctreeRayTracer``'s four routes).
 
 Every test here is marked ``cuda`` and skips without a CUDA device (a
 CUDA kernel has no CPU mode). The file imports nothing of JAX, so it also
@@ -429,3 +431,128 @@ def test_exp_warp_wrappers_raise_for_mixed_devices(exp_edge):
     e = exp_edge["edge fields"]
     with pytest.raises(ValueError):
         exp_onehot_warp.onehot_warp(e["t_hl"].cpu(), e["lin"], 64)
+
+
+# --------------------------------------------------------------------------
+# the exact tracers on the card
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def small():
+    """The 32^3 sphere on the card and on the CPU, with its leaf volume."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from ray_tracing_octrees_tpu_torch.core import octree
+
+    g = make_sphere_grid(32, device="cpu")
+    lv = octree.build_leaf_volume(octree.build_pyramid(g.occ))
+    return g, lv
+
+
+def test_dda_trace_on_card_matches_cpu(small):
+    """trace_octree_fast on the card: equal hit masks, t and steps."""
+    from ray_tracing_octrees_tpu_torch.render.camera import generate_rays
+    from ray_tracing_octrees_tpu_torch.trace.octree_trace import (
+        trace_octree_fast,
+    )
+
+    g, lv = small
+    cam = Camera(theta=0.4, phi=0.8, radius=2.2)
+    o, d = generate_rays(96, 64, cam.get_pos(), cam.get_view(), 45.0, 1.5,
+                         device="cpu")
+    args = (g.origin, g.voxel_size)
+    cpu = trace_octree_fast(lv, o, d, *args, ball_skip=True)
+    gpu = trace_octree_fast(lv.cuda(), o.cuda(), d.cuda(), *args,
+                            ball_skip=True)
+    for k in ("hit", "t", "steps"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+
+
+def test_sweep_exact_on_card_matches_cpu(small, monkeypatch):
+    """The sweep-exact primary and frame on the card: equal hits and t,
+    the dead test launched through warp_lookup and bitwise against its
+    plain version, the frame within 1e-5 of the CPU's."""
+    from ray_tracing_octrees_tpu_torch.trace import sweep_exact
+
+    g, lv = small
+    vol = (g.occ > 0).to(torch.float32)
+    cam = Camera(theta=0.9, phi=0.8, radius=2.0)
+    args = (g.origin.numpy(), float(g.voxel_size), cam.get_pos(),
+            cam.get_view(), 128, 72, 45.0, 128 / 72)
+    cpu = sweep_exact.trace_pixels_sweep_exact(vol, lv, *args, device="cpu")
+    calls = _recorded(monkeypatch, sweep_exact, "warp_lookup")
+    before = warp_kernel.warp_lookup.launches
+    gpu = sweep_exact.trace_pixels_sweep_exact(vol.cuda(), lv, *args,
+                                               device="cuda")
+    assert warp_kernel.warp_lookup.launches > before and len(calls) == 1
+    table, lin = calls[0]
+    assert torch.equal(warp_kernel.warp_lookup(table, lin),
+                       warp_kernel.warp_lookup_reference(table, lin))
+    assert torch.equal(gpu["hit"].cpu(), cpu["hit"])
+    assert torch.equal(gpu["t"].cpu(), cpu["t"])
+    light = tuple(-c for c in TO_LIGHT)
+    img_c, st_c = sweep_exact.render_exact_frame(vol, lv, *args,
+                                                 light_dir=light,
+                                                 device="cpu")
+    img_g, st_g = sweep_exact.render_exact_frame(vol.cuda(), lv, *args,
+                                                 light_dir=light,
+                                                 device="cuda")
+    assert st_g["unresolved"] == 0 and st_g["s_unresolved"] == 0
+    assert (st_g["rounds"], st_g["s_rounds"]) == (st_c["rounds"],
+                                                  st_c["s_rounds"])
+    assert float((img_g.cpu() - img_c).abs().max()) <= 1e-5
+
+
+def test_octree_raytracer_routes_on_card(small):
+    """OctreeRayTracer on the card: each route launches its kernel and
+    agrees with the same route on the CPU."""
+    import dataclasses
+
+    from ray_tracing_octrees_tpu_torch.config import EngineConfig
+    from ray_tracing_octrees_tpu_torch.models.octree_raytracer import (
+        OctreeRayTracer,
+    )
+
+    g, _ = small
+    cfg = EngineConfig()
+    rt_cfg = cfg.raytrace
+    settings = {
+        "sweep_exact": (cfg, {}, "warp_lookup"),
+        "dda": (dataclasses.replace(cfg, raytrace=dataclasses.replace(
+            rt_cfg, use_sweep_exact=False)), {}, None),
+        "fast_exact": (dataclasses.replace(cfg, raytrace=dataclasses.replace(
+            rt_cfg, use_fast_exact=True)), {}, "warp_lookup_multi"),
+        "fast": (cfg, dict(fast=True), "warp_frame"),
+    }
+    cam = Camera(theta=0.9, phi=0.8, radius=2.0)
+    for path, (c, kw, kernel) in settings.items():
+        out = {}
+        for dev in ("cpu", "cuda"):
+            tracer = OctreeRayTracer(config=c, device=dev)
+            tracer.set_octree(g)
+            before = getattr(warp_kernel, kernel).launches if kernel else 0
+            out[dev] = tracer.render(cam, 128, 72, 128 / 72, shadows=True,
+                                     **kw).cpu()
+            assert tracer.last_path == path, (dev, tracer.last_path)
+            if kernel and dev == "cuda":
+                assert getattr(warp_kernel, kernel).launches > before, path
+        hits = [x[..., :3].amax(-1) > 0 for x in out.values()]
+        assert float((hits[0] == hits[1]).float().mean()) > 0.999, path
+        close = (out["cuda"] - out["cpu"]).abs().amax(-1) <= 1.5 / 255.0
+        assert float(close.float().mean()) > 0.995, path
+
+
+def test_unfused_fast_frame_on_card(scene):
+    g, vol, sv, lay = scene
+    cam = _camera("exterior")
+    args = (g.origin.cpu().numpy(), float(g.voxel_size.cpu()), cam.get_pos(),
+            cam.get_view(), 45.0, W / H, W, H)
+    kw = dict(light_dir=tuple(-c for c in TO_LIGHT), layouts=lay,
+              device="cuda")
+    before = warp_kernel.warp_lookup.launches
+    split = slab_sweep.render_fast_frame(vol, sv, *args, **kw, fused=False)
+    assert warp_kernel.warp_lookup.launches > before
+    fused = slab_sweep.render_fast_frame(vol, sv, *args, **kw)
+    splitq = torch.round(split.clamp(0.0, 1.0) * 255.0) / 255.0
+    close = (splitq - fused).abs().amax(-1) <= 1.5 / 255.0
+    assert float(close.float().mean()) > 0.995

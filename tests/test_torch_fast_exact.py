@@ -327,7 +327,7 @@ def test_consume_ladder_compaction_is_exact(scenes):
                                cfg["IW"], flip, cfg["ta"], cfg["tb"])
     rd3 = tuple(c / scal[10] for c in tse._pixel_rays_sab(
         scal, consts, cfg["axis_world"], W, H))
-    ok, ti, tj = tfe._texel_map(rd3, scal, flip, cfg["IH"], cfg["IW"])
+    ok, ti, tj = tse._texel_map(rd3, scal, flip, cfg["IH"], cfg["IW"])
     pix = torch.nonzero(ok).squeeze(1)
     bits = words[(ti * cfg["IW"] + tj).long()][pix]
     rd3 = tuple(c[pix] for c in rd3)

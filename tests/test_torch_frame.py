@@ -111,6 +111,33 @@ def test_frame_has_lit_shadowed_and_background(scene):
     assert (out[..., 3] == 1).all()
 
 
+@pytest.mark.parametrize("name", list(POSES))
+def test_unfused_frame_matches_fused(scene, name):
+    """render_fast_frame(fused=False), the stage-by-stage route through
+    warp_lookup, against the fused kernel's frame and JAX's unfused frame,
+    at the bar of tests/test_warp_kernel.py."""
+    g, vol, sv_j, sv_t = scene
+    cam = _camera(name)
+    ld = tuple(-c for c in TO_LIGHT)
+    args = (np.asarray(g.origin), float(g.voxel_size), cam.get_pos(),
+            cam.get_view(), 45.0, W / H, W, H)
+    kw = dict(light_dir=ld, inter_h=256, inter_w=256, device="cpu")
+    vol_t = torch.from_numpy(vol)
+    fused = ts.render_fast_frame(vol_t, sv_t, *args, **kw).numpy()
+    split = ts.render_fast_frame(vol_t, sv_t, *args, **kw, fused=False)
+    assert split.shape == (H, W, 4) and split.dtype == torch.float32
+    split = split.numpy()
+    splitq = np.round(np.clip(split, 0.0, 1.0) * 255.0) / 255.0
+    assert _agree(splitq, fused) > 0.995
+    ref = np.asarray(js.render_fast_frame(
+        vol, sv_j, g.origin, g.voxel_size, cam.get_pos(), cam.get_view(),
+        45.0, W / H, W, H, light_dir=ld, inter_h=256, inter_w=256,
+        fused=False))
+    assert _agree(split, ref) > 0.995
+    assert np.array_equal(split[..., :3].max(-1) > 0,
+                          fused[..., :3].max(-1) > 0)
+
+
 def test_layouts_reused_across_frames(scene):
     g, vol, _, sv_t = scene
     vol_t = torch.from_numpy(vol)
@@ -133,7 +160,10 @@ def _entry_points():
     from ray_tracing_octrees_tpu_torch.core import cache, grid
     from ray_tracing_octrees_tpu_torch.render import camera
     from ray_tracing_octrees_tpu_torch import bench, convert
-    from ray_tracing_octrees_tpu_torch.trace import fast_exact
+    from ray_tracing_octrees_tpu_torch.core.octree import build_pyramid
+    from ray_tracing_octrees_tpu_torch.models import octree_raytracer
+    from ray_tracing_octrees_tpu_torch.render import frustum
+    from ray_tracing_octrees_tpu_torch.trace import fast_exact, sweep_exact
 
     vol = np.zeros((8, 8, 8), np.float32)
     vol[3:5, 3:5, 3:5] = 1
@@ -161,6 +191,28 @@ def _entry_points():
             45.0, 1.0, 16, 16),
         "pyramid_from_numpy": lambda: convert.pyramid_from_numpy(
             [vol.astype(np.uint8)]),
+        "render_octree_image": lambda: octree_raytracer.render_octree_image(
+            build_pyramid(torch.from_numpy(vol)), (-0.5, -0.5, -0.5), 1 / 8,
+            cam.get_pos(), cam.get_view(), 16, 16, 45.0, 1.0),
+        "OctreeRayTracer.set_octree": lambda: octree_raytracer.OctreeRayTracer(
+        ).set_octree(grid.make_sphere_grid(8, device="cpu")),
+        "render_exact_frame": lambda: sweep_exact.render_exact_frame(
+            vol, None, (-0.5, -0.5, -0.5), 1 / 8, cam.get_pos(),
+            cam.get_view(), 16, 16, 45.0, 1.0),
+        "trace_pixels_sweep_exact": lambda:
+            sweep_exact.trace_pixels_sweep_exact(
+                vol, None, (-0.5, -0.5, -0.5), 1 / 8, cam.get_pos(),
+                cam.get_view(), 16, 16, 45.0, 1.0),
+        "build_shadow_field": lambda: sweep_exact.build_shadow_field(
+            vol, (-1.0, -1.0, -1.0), 1 / 8),
+        "dilate_occupancy": lambda: ts.dilate_occupancy(vol),
+        "sweep_seed": lambda: ts.sweep_seed(
+            vol, (-0.5, -0.5, -0.5), 1 / 8, cam.get_pos(), cam.get_view(),
+            45.0, 1.0, 16, 16),
+        "build_shadow_seed": lambda: ts.build_shadow_seed(vol, TO_LIGHT),
+        "frustum_planes": lambda: frustum.frustum_planes(np.eye(4)),
+        "visible_cell_mask": lambda: frustum.visible_cell_mask(
+            (8, 8, 8), (0, 0, 0), 1.0, np.eye(4), 0.0),
         "bench.run_bench": lambda: bench.run_bench(
             scene="sphere", width=16, height=16, iters=1, dim=8),
         "bench.main": lambda: bench.main(
@@ -206,7 +258,12 @@ def test_port_imports_no_jax():
             "ray_tracing_octrees_tpu_torch.tools.exp_warp2pass, "
             "ray_tracing_octrees_tpu_torch.tools.exp_warp_tune2, "
             "ray_tracing_octrees_tpu_torch.tools.exp_warp_ablate, "
-            "ray_tracing_octrees_tpu_torch.bench; "
+            "ray_tracing_octrees_tpu_torch.bench, "
+            "ray_tracing_octrees_tpu_torch.config, "
+            "ray_tracing_octrees_tpu_torch.models.octree_raytracer, "
+            "ray_tracing_octrees_tpu_torch.render.frustum, "
+            "ray_tracing_octrees_tpu_torch.trace.sweep_exact, "
+            "ray_tracing_octrees_tpu_torch.trace.mesh_grid; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ray_tracing_octrees_tpu' "
             "or m.startswith('ray_tracing_octrees_tpu.')]; "
