@@ -1734,8 +1734,8 @@ def main() -> int:
     # 12. the bench
     bench_rec = run_bench_phase(checks_parity["sweep_first_hit"])
 
-    # 13-17. the exact tracers of the seventh slice
-    slice7 = exact_tracer_phases(dict(
+    # 13-17. the exact tracers
+    exact = exact_tracer_phases(dict(
         dev=dev, smi=smi, vol=vol, pyr=pyr, origin=origin, vox=vox,
         light_dir=light_dir, layouts=layouts, grid=grid, occ_np=occ_np,
         small=small, bench_camera=bench_camera, exact_camera=exact_camera))
@@ -1746,7 +1746,7 @@ def main() -> int:
         "warp_lookup_multi": {"exact frame (phase 8)":
                               ex_launches["warp_lookup_multi"]},
     }
-    for path, counts in slice7["launches"].items():
+    for path, counts in exact["launches"].items():
         for k, v in counts.items():
             by_path[k][path] = v
 
@@ -1831,7 +1831,7 @@ def main() -> int:
         "exact_stats": estats, "exact_profiled_wall_ms": ewall,
         "exact_device_busy_ms": ebusy if eper else None,
         "parity": checks_parity, "bench": bench_rec,
-        "exact_tracers": {k: v for k, v in slice7.items() if k != "launches"},
+        "exact_tracers": {k: v for k, v in exact.items() if k != "launches"},
         "card": smi}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
