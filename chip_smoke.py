@@ -74,31 +74,37 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               record's sections (headline, parity line equal to phase 9's,
               the exact section, which must take the DDA ladder at the
               headline pose, the 16-pose ensemble)
-  13. dda     the DDA-ladder frame (render_octree_image over the leaf
-              volume with sweep_seed's seeds, ball skipping and the JAX
-              bench's ladders) at 1920x1088 with shadows at the bench pose:
-              ms per frame, the primary rays' steps (median, largest),
-              compactions and host syncs per frame, the device-busy share
-              under torch.profiler; then the DDA's check period (steps
-              between host syncs) at 1, 2, 4 and 8, timed in turns
+  13. dda     the DDA frame of the JAX bench's exact section
+              (render_octree_image over the leaf volume with sweep_seed's
+              seeds and ball skipping) at 1920x1088 with shadows at the
+              bench pose: ms per frame, the primary rays' steps (median,
+              largest), compactions and host syncs per frame, the
+              device-busy share under torch.profiler
   14. dda parity  the same trace's hit mask at 240x136 (the headline's
-              aspect) against trace_octree: every mismatch a grazing
-              crossing
+              aspect) against trace_octree, where the slope gate leaves it
+              unseeded; then the seeded trace at radius 2.0 x extent: the
+              seed table's warp_lookup held bitwise, its hit mask against
+              trace_octree; every mismatch a grazing crossing
   15. sweep exact  render_exact_frame at 1920x1088 with shadows at the
               bench angles and radius 2.0 x extent: ms, stats (overflow
               and unresolved 0), idle share; warp_lookup launched on its
-              dead test, counts set to 0 before and read after, bitwise
-              against warp_lookup_reference on that frame's table and lin
-  16. tracer  OctreeRayTracer.render at 1920x1080 with shadows: the default
+              dead test, counts set to 0 before and read after, each call
+              bitwise against warp_lookup_reference on its own table and lin
+  16. unfused render_fast_frame(fused=False) at 1920x1080 at the bench
+              pose: warp_lookup launched and each call held bitwise, the
+              image within 1.5/255 of the fused frame's, ms per frame
+  17. tracer  OctreeRayTracer.render at 1920x1080 with shadows: the default
               config at both poses (the DDA at the headline radius,
-              sweep-exact at 2.0), use_sweep_exact=False, use_fast_exact=
-              True and fast=True, the path each took, with warp_frame's,
-              warp_lookup's and warp_lookup_multi's counts set to 0 before
-              and read after (each must launch)
-  17. card vs CPU  trace_octree_fast and the sweep-exact primary on the
+              sweep-exact at 2.0), use_sweep_exact=False (the seeded DDA),
+              use_fast_exact=True and fast=True, the path each took, with
+              warp_frame's, warp_lookup's and warp_lookup_multi's counts set
+              to 0 before and read after (each must launch), every call of
+              them held bitwise against its plain version on its inputs
+  18. card vs CPU  trace_octree_fast and the sweep-exact primary on the
               32^3 sphere: equal hit masks and equal t
-  18. lines   the kernels JSON line, the nvidia-smi line, and last the
-              {"ok": true, "device": {...}} line
+  19. lines   the kernels JSON line (each kernel's calls held on the
+              exact tracers' paths under "held_on_paths"), the nvidia-smi
+              line, and last the {"ok": true, "device": {...}} line
 
 Imports nothing of JAX or of the JAX package. Without a CUDA device, or
 without the port package beside it, it exits non-zero and prints no result.
@@ -150,7 +156,6 @@ N_EXACT = 5           # exact frames per timed window
 EXACT_RADIUS = 2.0    # x extent: the bench angles inside the exact envelope
 N_COLD = 16           # copies of a row's index fields in its cold timings
 EW, EH = 1920, 1088   # the exact frames of phases 13 and 15 (the JAX bench's)
-CHECK_PERIODS = [1, 2, 4, 8]   # DDA steps between live checks, timed in turns
 
 
 def log(phase: str, msg: str) -> None:
@@ -398,18 +403,49 @@ def parity(hit, t, ref, vs):
     return float((hit != ref["hit"]).float().mean()), rms
 
 
-def recorded(module, name):
-    """Wrap ``module.name`` so each call keeps its arguments; returns
-    (calls, restore)."""
-    calls = []
-    real = getattr(module, name)
+def held_calls(targets):
+    """Wrap each ``(module, name)`` of ``targets`` so every call keeps its
+    arguments and a copy of its output; returns (calls by name, restore).
+    A name wrapped in two modules shares one list."""
+    calls, undo = {}, []
+    for module, name in targets:
+        real = getattr(module, name)
+        kept = calls.setdefault(name, [])
 
-    def rec(*args):
-        calls.append(args)
-        return real(*args)
+        def rec(*args, _real=real, _kept=kept):
+            out = _real(*args)
+            _kept.append((args, out.clone()))
+            return out
 
-    setattr(module, name, rec)
-    return calls, lambda: setattr(module, name, real)
+        setattr(module, name, rec)
+        undo.append((module, name, real))
+
+    def restore():
+        for module, name, real in undo:
+            setattr(module, name, real)
+    return calls, restore
+
+
+def hold(calls, reference) -> dict:
+    """Each kept kernel call's output against ``reference`` (its plain
+    version) on the same inputs: dict(calls, bitwise_share (the least),
+    max_abs_err)."""
+    shares, err = [], 0.0
+    for args, out in calls:
+        ref = reference(*args)
+        shares.append(equal_share(out, ref))
+        err = max(err, float((out.double() - ref.double()).abs().max()))
+    return dict(calls=len(calls), bitwise_share=min(shares, default=None),
+                max_abs_err=err)
+
+
+def require_held(label: str, held: dict) -> None:
+    """Fail unless every kept call of every kernel in ``held`` (name ->
+    :func:`hold`'s dict) equals its plain version bit for bit."""
+    for name, h in held.items():
+        if h["calls"] < 1 or h["bitwise_share"] != 1.0:
+            raise RuntimeError(f"{label}: {name} on its path differs from "
+                               f"its plain version or was not called: {h}")
 
 
 # The warp experiments' rows of the kernel table: (the TPU kernel body
@@ -866,10 +902,13 @@ def run_bench_phase(parity_ref: dict) -> dict:
 
 
 def exact_tracer_phases(ctx: dict) -> dict:
-    """Phases 13-17: the exact DDA ladder frame, its parity, the
-    sweep-exact frame, OctreeRayTracer's routes and card-against-CPU on
+    """Phases 13-18: the exact DDA ladder frame, its parity (unseeded at
+    the headline pose, seeded at radius 2.0), the sweep-exact frame, the
+    unfused fast frame, OctreeRayTracer's routes and card-against-CPU on
     the 32^3 sphere. ``ctx`` holds the scene and helpers of main; returns
-    the record's summary and the kernels' launches by path."""
+    the record's summary, the kernels' launches by path ("launches") and
+    their calls on those paths held against their plain versions
+    ("held", by kernel and path)."""
     import numpy as np
     import torch
 
@@ -885,7 +924,7 @@ def exact_tracer_phases(ctx: dict) -> dict:
         Camera, generate_rays,
     )
     from ray_tracing_octrees_tpu_torch.trace import (
-        octree_trace, slab_sweep, sweep_exact,
+        fast_exact, slab_sweep, sweep_exact,
     )
     from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
     from ray_tracing_octrees_tpu_torch.trace.octree_trace import (
@@ -898,7 +937,7 @@ def exact_tracer_phases(ctx: dict) -> dict:
     kernels = {"warp_frame": wk.warp_frame, "warp_lookup": wk.warp_lookup,
                "warp_lookup_multi": wk.warp_lookup_multi}
     amb32 = float(np.float32(0.1))
-    out = {"launches": {}}
+    out = {"launches": {}, "held": {"warp_lookup": {}}}
 
     def zero():
         for fn in kernels.values():
@@ -934,13 +973,20 @@ def exact_tracer_phases(ctx: dict) -> dict:
                                       stats)[0]
 
     cam = ctx["bench_camera"]()
+    d_calls, restore = held_calls([(slab_sweep, "warp_lookup")])
     zero()
     st = {}
     t = time.perf_counter()
     img = dda(cam, st)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
+    restore()
     out["launches"]["DDA frame (phase 13)"] = read()
+    d_held = {k: hold(v, wk.warp_lookup_reference)
+              for k, v in d_calls.items() if v}
+    require_held("the DDA frame", d_held)
+    for k, h in d_held.items():
+        out["held"][k]["DDA frame (phase 13)"] = h
     counts = bench.dda_counts(st)
     seeded = bench.dda_ladder_frame(pyr, leaf_vol, seed_lay, origin, vox, cam,
                                     16, 9, aspect, light_dir, dev)[1]
@@ -977,33 +1023,6 @@ def exact_tracer_phases(ctx: dict) -> dict:
                            "pixels")
     if counts["primary_steps_max"] >= 512:
         raise RuntimeError("the DDA frame reached the step bound")
-    # the DDA's check period (a host sync each; a check compacts when at
-    # most half of the rows are alive), timed in turns: one window of
-    # N_EXACT frames per period, the periods in order and then reversed
-    base = octree_trace._FAST_CHECK_EVERY
-    periods = {}
-    try:
-        for k in CHECK_PERIODS + CHECK_PERIODS[::-1]:
-            octree_trace._FAST_CHECK_EVERY = k
-            st_k = {}
-            dda(cam, st_k)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(N_EXACT):
-                cam.phi += 1e-4
-                dda(cam)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t) / N_EXACT * 1e3
-            periods.setdefault(k, dict(ms=[], counts=bench.dda_counts(st_k)))
-            periods[k]["ms"].append(ms)
-    finally:
-        octree_trace._FAST_CHECK_EVERY = base
-    dda_rec["check_periods"] = periods
-    log("dda", f"[{smi}] check period in turns (ms per frame; syncs, "
-        f"compactions, steps run a frame): " + "; ".join(
-            f"every {k}: {', '.join(f'{m:.3f}' for m in v['ms'])}; "
-            f"{v['counts']['syncs']}, {v['counts']['compactions']}, "
-            f"{v['counts']['iterations']}" for k, v in periods.items()))
 
     # 14. its hit mask against the oracle
     pw, ph = 240, 136
@@ -1033,7 +1052,52 @@ def exact_tracer_phases(ctx: dict) -> dict:
     if bad:
         raise RuntimeError(f"DDA mismatches that are not grazing crossings: "
                            f"{bad[:10]}")
+    # ... and the seeded route at radius 2.0 x extent, where the slope
+    # gate lets sweep_seed's seeds apply: the seed table (the dilated
+    # volume's sweep) warped by warp_lookup, held bitwise, and the seeded
+    # trace's hit mask against the oracle
+    scam = ctx["exact_camera"]()
+    o, d = generate_rays(pw, ph, scam.get_pos(), scam.get_view(), 45.0,
+                         aspect, device=dev)
+    ref = trace_octree(pyr, o, d, origin, vox)
+    seed_calls, restore = held_calls([(slab_sweep, "warp_lookup")])
+    zero()
+    live, ts, ext = slab_sweep.sweep_seed(
+        seed_lay.volume, origin, vox, scam.get_pos(), scam.get_view(), 45.0,
+        aspect, pw, ph, layouts=seed_lay, device=dev)
+    torch.cuda.synchronize()
+    restore()
+    out["launches"]["DDA seeds (phase 14)"] = read()
+    if not ext:
+        raise RuntimeError("the seeds do not apply at radius 2.0")
+    seed_held = hold(seed_calls.get("warp_lookup", []),
+                     wk.warp_lookup_reference)
+    res = trace_octree_fast(leaf_vol, o, d, origin, vox, ball_skip=True,
+                            t_start=ts, live_mask=live, const_origin=True)
+    plain = trace_octree_fast(leaf_vol, o, d, origin, vox, ball_skip=True,
+                              const_origin=True)
+    idx = torch.nonzero(res["hit"] != ref["hit"]).squeeze(1).cpu().numpy()
+    bad = grazing_failures(
+        idx, o.cpu().numpy().astype(np.float64),
+        d.cpu().numpy().astype(np.float64), res["t"].cpu().numpy(),
+        ref["t"].cpu().numpy(), ctx["occ_np"], origin.astype(np.float64), vox)
+    both = res["hit"] & ref["hit"]
+    dda_rec["seeded_parity"] = dict(
+        resolution=f"{pw}x{ph}", radius=EXACT_RADIUS, mismatches=len(idx),
+        not_grazing=len(bad),
+        t_max_abs_err=float((res["t"] - ref["t"]).abs()[both].max()),
+        oracle_hits=int(ref["hit"].sum()), dead_rays=int((~live).sum()),
+        seeded_vs_unseeded_hit=int((res["hit"] != plain["hit"]).sum()),
+        seeded_vs_unseeded_t=int((res["t"] != plain["t"]).sum()),
+        seed_warp_lookup=seed_held)
+    log("dda parity", f"seeded, radius {EXACT_RADIUS} x extent, {pw}x{ph}: "
+        f"{dda_rec['seeded_parity']}")
+    require_held("the DDA seeds", {"warp_lookup": seed_held})
+    if bad:
+        raise RuntimeError(f"seeded DDA mismatches that are not grazing "
+                           f"crossings: {bad[:10]}")
     out["dda"] = dda_rec
+    out["held"]["warp_lookup"]["DDA seeds (phase 14)"] = seed_held
 
     # 15. the sweep-exact frame at radius 2.0
     ecam = ctx["exact_camera"]()
@@ -1055,17 +1119,16 @@ def exact_tracer_phases(ctx: dict) -> dict:
             raise RuntimeError("the sweep-exact pose is outside its envelope")
         return got
 
-    look_calls, restore = recorded(sweep_exact, "warp_lookup")
+    look_calls, restore = held_calls([(sweep_exact, "warp_lookup")])
     zero()
     simg, sstats = sweep_frame(ecam)
     torch.cuda.synchronize()
     restore()
     out["launches"]["sweep-exact frame (phase 15)"] = read()
-    table, lin = look_calls[0]
-    got = wk.warp_lookup(table, lin)
-    ref_l = wk.warp_lookup_reference(table, lin)
-    torch.cuda.synchronize()
-    dead_share = equal_share(got, ref_l)
+    dead = hold(look_calls["warp_lookup"], wk.warp_lookup_reference)
+    out["held"]["warp_lookup"]["sweep-exact dead test (phase 15)"] = dead
+    (table, lin), _ = look_calls["warp_lookup"][0]
+    dead_share = dead["bitwise_share"]
     swins = windows_ms(lambda c: sweep_frame(c), ecam)
     swall, sper = profiled(lambda: sweep_frame(ecam), 2)
     sbusy = sum(sper.values())
@@ -1079,8 +1142,7 @@ def exact_tracer_phases(ctx: dict) -> dict:
         device_busy_ms=sbusy if sper else None,
         idle_share=max(0.0, 1 - sbusy / swall) if sper else None,
         dead_test=dict(table=list(table.shape), lin=list(lin.shape),
-                       bitwise_share=dead_share,
-                       max_abs_err=float((got - ref_l).abs().max())),
+                       **dead),
         pixels=dict(lit=s_lit, shadowed=s_sh, background=s_bg))
     log("sweep exact", f"[{smi}] {EW}x{EH}, radius {EXACT_RADIUS} x extent, "
         f"shadows on: {min(swins):.3f} ms per frame (best of 3 windows of "
@@ -1098,16 +1160,56 @@ def exact_tracer_phases(ctx: dict) -> dict:
         f"background {s_bg} px")
     if out["launches"]["sweep-exact frame (phase 15)"]["warp_lookup"] < 1:
         raise RuntimeError("the sweep-exact frame launched no warp_lookup")
-    if dead_share != 1.0:
-        raise RuntimeError("warp_lookup differs from its plain version on "
-                           "the dead test")
+    require_held("the sweep-exact dead test", {"warp_lookup": dead})
     if sstats["overflow"] or sstats["unresolved"] or sstats["s_unresolved"]:
         raise RuntimeError(f"the sweep-exact frame left rays: {sstats}")
     if min(s_lit, s_sh, s_bg) == 0 or not bool(torch.isfinite(simg).all()):
         raise RuntimeError("the sweep-exact frame lacks lit, shadowed or "
                            "background pixels")
 
-    # 16. OctreeRayTracer.render through every route
+    # 16. the unfused fast frame: the stage-by-stage route through
+    # warp_lookup at the headline pose
+    ucam = ctx["bench_camera"]()
+
+    def fast_frame(c, fused):
+        return slab_sweep.render_fast_frame(
+            vol, lay.shadow, origin, vox, c.get_pos(), c.get_view(), 45.0,
+            aspect, WIDTH, HEIGHT, light_dir=light_dir, layouts=lay,
+            device=dev, fused=fused)
+
+    u_calls, restore = held_calls([(slab_sweep, "warp_lookup")])
+    zero()
+    uimg = fast_frame(ucam, False)
+    torch.cuda.synchronize()
+    restore()
+    out["launches"]["unfused fast frame (phase 16)"] = read()
+    u_held = hold(u_calls["warp_lookup"], wk.warp_lookup_reference)
+    out["held"]["warp_lookup"]["unfused fast frame (phase 16)"] = u_held
+    fimg = fast_frame(ucam, True)
+    uq = torch.round(uimg.clamp(0.0, 1.0) * 255.0) / 255.0
+    u_share = float(((uq - fimg).abs().amax(-1) <= MATCH_TOL).float().mean())
+    u_hits = torch.equal(uimg[..., :3].amax(-1) > 0, fimg[..., :3].amax(-1) > 0)
+    uwins = windows_ms(lambda c: fast_frame(c, False), ucam)
+    out["unfused_fast_frame"] = dict(
+        frame_ms=min(uwins), frame_ms_windows=uwins,
+        share_within_1_5_255_of_fused=u_share, hit_masks_equal=u_hits,
+        warp_lookup=u_held)
+    log("unfused frame", f"[{smi}] {WIDTH}x{HEIGHT} at the bench pose, "
+        f"shadows on: {min(uwins):.3f} ms per frame (best of 3 windows of "
+        f"{N_EXACT}); launches "
+        f"{out['launches']['unfused fast frame (phase 16)']}; warp_lookup "
+        f"held {u_held}; {u_share:.6f} of pixels within 1.5/255 of the "
+        f"fused frame, hit masks equal {u_hits}")
+    if out["launches"]["unfused fast frame (phase 16)"]["warp_lookup"] < 1:
+        raise RuntimeError("the unfused fast frame launched no warp_lookup")
+    require_held("the unfused fast frame", {"warp_lookup": u_held})
+    if u_share <= MATCH_SHARE or not u_hits:
+        raise RuntimeError("the unfused fast frame disagrees with the fused "
+                           "one")
+
+    # 17. OctreeRayTracer.render through every route, each kernel call
+    # kept and held bitwise against its plain version on the route's own
+    # inputs (the config's light, 1080 rows)
     cfg = EngineConfig()
     rt_cfg = cfg.raytrace
     settings = [
@@ -1122,27 +1224,52 @@ def exact_tracer_phases(ctx: dict) -> dict:
         ("fast=True", cfg, ctx["bench_camera"], dict(fast=True), "fast"),
     ]
     grid = ctx["grid"]
+    references = {"warp_frame": wk.warp_frame_reference,
+                  "warp_lookup": wk.warp_lookup_reference,
+                  "warp_lookup_multi": wk.warp_lookup_multi_reference}
     routes = {}
-    zero()
+    tracer_launches = dict.fromkeys(kernels, 0)
     t0 = time.perf_counter()
     for label, c, camera, kw, want in settings:
         tracer = OctreeRayTracer(config=c)
         tracer.set_octree(grid, pyramid=pyr)
+        calls, restore = held_calls([
+            (slab_sweep, "warp_frame"), (slab_sweep, "warp_lookup"),
+            (sweep_exact, "warp_lookup"), (fast_exact, "warp_lookup_multi")])
+        zero()
         t = time.perf_counter()
-        rimg = tracer.render(camera(), WIDTH, HEIGHT, aspect, shadows=True,
-                             **kw)
-        torch.cuda.synchronize()
-        routes[label] = dict(path=tracer.last_path, seconds=time.perf_counter()
-                             - t, hit_share=float((rimg[..., :3].amax(-1) > 0)
-                                                  .float().mean()))
-        log("tracer", f"{label}: path {tracer.last_path}, "
-            f"{routes[label]['seconds']:.2f} s with the scene's set-up, hit "
-            f"share {routes[label]['hit_share']:.4f}")
+        try:
+            rimg = tracer.render(camera(), WIDTH, HEIGHT, aspect,
+                                 shadows=True, **kw)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        seconds = time.perf_counter() - t
+        launched = read()
+        for k, v in launched.items():
+            tracer_launches[k] += v
+        held = {k: hold(v, references[k]) for k, v in calls.items() if v}
+        for k, h in held.items():
+            out["held"].setdefault(k, {})[f"OctreeRayTracer {label} "
+                                          f"(phase 17)"] = h
+        routes[label] = dict(path=tracer.last_path, seconds=seconds,
+                             launches=launched, held=held,
+                             hit_share=float((rimg[..., :3].amax(-1) > 0)
+                                             .float().mean()))
+        log("tracer", f"{label}: path {tracer.last_path}, {seconds:.2f} s "
+            f"with the scene's set-up, hit share "
+            f"{routes[label]['hit_share']:.4f}; launches {launched}; held "
+            f"{held}")
         if tracer.last_path != want or tuple(rimg.shape) != (HEIGHT, WIDTH,
                                                              4):
             raise RuntimeError(f"OctreeRayTracer {label}: path "
                                f"{tracer.last_path}, want {want}")
-    out["launches"]["OctreeRayTracer (phase 16)"] = tracer_launches = read()
+        unkept = [k for k, v in launched.items() if v and k not in held]
+        if unkept:
+            raise RuntimeError(f"OctreeRayTracer {label}: {unkept} launched "
+                               f"outside the kept calls")
+        require_held(f"OctreeRayTracer {label}", held)
+    out["launches"]["OctreeRayTracer (phase 17)"] = tracer_launches
     log("tracer", f"five renders in {time.perf_counter() - t0:.2f} s; "
         f"launches {tracer_launches}")
     missing = [k for k, v in tracer_launches.items() if v == 0]
@@ -1150,7 +1277,7 @@ def exact_tracer_phases(ctx: dict) -> dict:
         raise RuntimeError(f"OctreeRayTracer's routes launched no {missing}")
     out["tracer"] = routes
 
-    # 17. the card against the CPU on the 32^3 sphere
+    # 18. the card against the CPU on the 32^3 sphere
     small = ctx["small"]
     s_lv = build_leaf_volume(build_pyramid(small.occ))
     s_vol = (small.occ > 0).to(torch.float32)
@@ -1451,7 +1578,7 @@ def main() -> int:
 
     # 7. first hit: sweep_first_hit through the warp_lookup kernel
     wk = warp_kernel
-    look_calls, restore = recorded(slab_sweep, "warp_lookup")
+    look_calls, restore = held_calls([(slab_sweep, "warp_lookup")])
     wk.warp_lookup.launches = 0
     wk.warp_lookup_multi.launches = 0
     for k in wk.LOOKUP_FORM_LAUNCHES:
@@ -1493,7 +1620,7 @@ def main() -> int:
         return out
 
     ecam = exact_camera()
-    multi_calls, restore = recorded(fast_exact, "warp_lookup_multi")
+    multi_calls, restore = held_calls([(fast_exact, "warp_lookup_multi")])
     wk.warp_lookup.launches = 0
     wk.warp_lookup_multi.launches = 0
     eimg, estats = exact_frame(ecam)
@@ -1617,17 +1744,17 @@ def main() -> int:
 
     # 10. the lookup kernels against their plain versions, and their times
     lookups = {}
-    table, lin = look_calls[0]
+    (table, lin), _ = look_calls["warp_lookup"][0]
     multi_in = {}
     for name, (th_, ph_) in {"flip_true": (0.9, 0.8),
                              "flip_false": (-0.9, 0.8 + 3.14159)}.items():
         if name == "flip_true":
-            multi_in[name] = multi_calls[0]
+            multi_in[name] = multi_calls["warp_lookup_multi"][0][0]
             continue
-        calls, restore = recorded(fast_exact, "warp_lookup_multi")
+        calls, restore = held_calls([(fast_exact, "warp_lookup_multi")])
         exact_frame(exact_camera(th_, ph_))
         restore()
-        multi_in[name] = calls[0]
+        multi_in[name] = calls["warp_lookup_multi"][0][0]
     # warp_lookup's forms on edge inputs made from the bench lin: each
     # bitwise, each launching the forms lookup_forms chooses
     lookup_forms, lookup_edge_ms = {}, {}
@@ -1734,7 +1861,7 @@ def main() -> int:
     # 12. the bench
     bench_rec = run_bench_phase(checks_parity["sweep_first_hit"])
 
-    # 13-17. the exact tracers
+    # 13-18. the exact tracers
     exact = exact_tracer_phases(dict(
         dev=dev, smi=smi, vol=vol, pyr=pyr, origin=origin, vox=vox,
         light_dir=light_dir, layouts=layouts, grid=grid, occ_np=occ_np,
@@ -1750,7 +1877,8 @@ def main() -> int:
         for k, v in counts.items():
             by_path[k][path] = v
 
-    # 18. lines
+    # 19. lines
+    held = exact["held"]
     record = {"kernels": [{
         "name": "warp_frame",
         "route": "cuda",
@@ -1759,8 +1887,11 @@ def main() -> int:
         "launches": sum(by_path["warp_frame"].values()),
         "launches_by_path": by_path["warp_frame"],
         "launches_per_frame": launches["warp_frame"] / n_main,
-        "max_abs_err": max(e for _, _, e in checks.values()),
+        "max_abs_err": max([e for _, _, e in checks.values()]
+                           + [h["max_abs_err"] for h in
+                              held.get("warp_frame", {}).values()]),
         "bitwise_share": {k: b for k, (b, _, _) in checks.items()},
+        "held_on_paths": held.get("warp_frame", {}),
         "bitwise_share_instantiations": inst_checks,
         "match_bar": "bitwise equal (share 1.0)",
         "match_share_within_1.5_255": {k: s for k, (_, s, _)
@@ -1793,8 +1924,11 @@ def main() -> int:
         "launches": sum(by_path[kname].values()),
         "launches_by_path": by_path[kname],
         "launches_per_frame": launches_of / n_frames,
-        "max_abs_err": max(e for _, e in lk["res"].values()),
+        "max_abs_err": max([e for _, e in lk["res"].values()]
+                           + [h["max_abs_err"] for h in
+                              held.get(kname, {}).values()]),
         "bitwise_share": {k: b for k, (b, _) in lk["res"].items()},
+        "held_on_paths": held.get(kname, {}),
         "match_bar": "bitwise equal (share 1.0)",
         "match_share": {k: b for k, (b, _) in lk["res"].items()},
         "match_ok": True,
@@ -1831,7 +1965,8 @@ def main() -> int:
         "exact_stats": estats, "exact_profiled_wall_ms": ewall,
         "exact_device_busy_ms": ebusy if eper else None,
         "parity": checks_parity, "bench": bench_rec,
-        "exact_tracers": {k: v for k, v in exact.items() if k != "launches"},
+        "exact_tracers": {k: v for k, v in exact.items()
+                          if k not in ("launches", "held")},
         "card": smi}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -56,7 +56,9 @@ class RayTraceConfig:
     ambient: Tuple[float, float, float] = (0.1, 0.1, 0.1)
     # exact-tracer accelerations (outputs unchanged up to the documented
     # nudge-epsilon grazing class; see trace/octree_trace.py)
-    exact_ladder: bool = True            # wavefront compaction ladder
+    # wavefront compaction ladder; no effect in the port, whose DDA
+    # compacts to the live rays (kept so configs match field for field)
+    exact_ladder: bool = True
     exact_seed: bool = True              # conservative sweep seeds
     # sweep-exact tracer (trace/sweep_exact.py): reference-semantics
     # first-hit at MXU rates; used automatically when the pose is inside

@@ -71,12 +71,9 @@ def render_octree_image(
     leaf_vol=None,
     ball_skip: bool = False,
     bands: int = 1,
-    ladder: tuple = (),
     seed_live=None,
     seed_t=None,
     shadow_live_vol=None,
-    shadow_ladder: tuple = None,
-    safety_cap: int = 0,
     shadow_seed=None,
     stats: Optional[dict] = None,
     device: DeviceLike = None,
@@ -94,9 +91,9 @@ def render_octree_image(
     (``slab_sweep.light_blocked_volume``) and ``shadow_seed``
     (``slab_sweep.build_shadow_seed``) prune shadow rays that provably
     reach the light. ``bands`` traces row bands one after another (the
-    same image). ``ladder``, ``shadow_ladder`` and ``safety_cap`` are the
-    reference's fixed-width compaction schedules; the port compacts to
-    the live rays instead, so they change nothing. ``stats``, when given,
+    same image). The reference's fixed-width compaction schedules
+    (``ladder``, ``shadow_ladder``, ``safety_cap``) have no counterpart:
+    the port's DDA compacts to the live rays. ``stats``, when given,
     is filled with per-trace counts: ``traces``, a list of dict(kind,
     syncs, compactions, iterations, steps) with ``steps`` the per-ray
     step counts (a tensor).
@@ -374,7 +371,6 @@ class OctreeRayTracer:
         # per pose and keeps the per-level descent
         lv = self._ensure_leaf_vol() if pyr is self.pyramid else None
         seed_live = seed_t = None
-        ladder = ()
         if lv is not None and rt.exact_seed:
             live, ts, ext = slab_sweep.sweep_seed(
                 self._ensure_seed_vol().volume, self.grid_origin,
@@ -383,10 +379,6 @@ class OctreeRayTracer:
                 device=self._dev)
             if ext:
                 seed_live, seed_t = live, ts
-        if lv is not None and rt.exact_ladder:
-            n_rays = width * height
-            ladder = ((0, max(512, n_rays // 2)), (4, max(256, n_rays // 8)),
-                      (8, max(128, n_rays // 32)))
         self.last_path = "dda"
         return render_octree_image(
             pyr, self.grid_origin, self.voxel_size, camera.get_pos(),
@@ -395,7 +387,7 @@ class OctreeRayTracer:
             ambient=rt.ambient, max_steps=rt.max_traversal_steps,
             shadows=shadows, leaf_vol=lv,
             ball_skip=bool(lv is not None and rt.exact_ball_skip),
-            ladder=ladder, seed_live=seed_live, seed_t=seed_t,
+            seed_live=seed_live, seed_t=seed_t,
             shadow_live_vol=(self._ensure_shadow_blk()
                              if lv is not None and shadows
                              and rt.exact_shadow_prune else None),

@@ -33,7 +33,9 @@ import torch
 
 from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
 from ray_tracing_octrees_tpu_torch.trace import sweep_exact as se
-from ray_tracing_octrees_tpu_torch.trace.mesh_grid import exact_tap_words
+from ray_tracing_octrees_tpu_torch.trace.mesh_grid import (
+    candidate_chunk, pack_chunk,
+)
 from ray_tracing_octrees_tpu_torch.trace.slab_sweep import (
     CH, SweepLayouts, _SAB_IDX, _bilinear_hats, _exact_matmul, _fdiv,
     _scene_layouts, _sqrt, _view_consts,
@@ -76,7 +78,7 @@ def _cube_sweep(occ_sw, shadow_sw, scal, s_valid: int, a_size: int,
     sp = occ_sw.shape[0]
     nb = ta * tb
     r1, hi1 = _plane_layout(nb)
-    ma_w, mb_w, am_f, bm_f = se._widened_perspective_hats(
+    hats = se._widened_perspective_hats(
         scal, sp, s_valid, a_size, b_size, inter_h, inter_w, flip, ta, tb)
     has_shadow = shadow_sw is not None
     if has_shadow:
@@ -88,18 +90,13 @@ def _cube_sweep(occ_sw, shadow_sw, scal, s_valid: int, a_size: int,
     cube = [torch.zeros(shape, dtype=i32, device=dev) for _ in range(3)]
     shb = [torch.zeros(shape, dtype=i32, device=dev) for _ in range(3)]
     words = torch.empty((sp // CH, inter_h * inter_w), dtype=i32, device=dev)
-    bit_of = torch.arange(CH, dtype=i32, device=dev)[:, None, None]
 
     for ci in range(sp // CH):
         lo, hi = ci * CH, (ci + 1) * CH
         # bit-exact weighted tap words (the split-chain form on wide taps)
-        det_i = exact_tap_words(occ_sw[lo:hi], ma_w[lo:hi], mb_w[lo:hi],
-                                wide=(ta > 3 or tb > 3)).to(i32)
-        fm = (am_f[lo:hi, :, None] * bm_f[lo:hi, None, :]).to(i32)
-        cand = (det_i & fm) != 0
-        # distinct bits: the int32 sum is their OR (bit 31 included)
-        words[ci] = torch.bitwise_left_shift(cand.to(i32), bit_of).sum(
-            0, dtype=i32).reshape(-1)
+        det_i, cand = candidate_chunk(occ_sw, hats, lo, hi,
+                                      wide=(ta > 3 or tb > 3))
+        words[ci] = pack_chunk(cand)
 
         any_c = cand.any(dim=0)
         f_rel = torch.argmax(cand.to(torch.uint8), dim=0).to(i32)

@@ -45,35 +45,46 @@ def exact_tap_words(sl, ma, mb, wide: bool):
     return det_lo + 512.0 * det_hi
 
 
-def _sweep_candidates(detect_sw, hats, s_valid: int, a_size: int,
-                      b_size: int, inter_h: int, inter_w: int, flip: bool,
-                      exact_acc: bool = False) -> torch.Tensor:
-    """One detection sweep builds a frame's whole candidate bit field:
-    int32[IH * IW, sp / 32], bit (o & 31) of word [texel, o >> 5] set iff
-    the texel's footprint in slab o holds a solid cell.
+def candidate_chunk(detect_sw, hats, lo: int, hi: int, wide: bool):
+    """Slabs ``lo:hi`` of the detection sweep: (tap words int32[c, IH,
+    IW], candidate flags bool[c, IH, IW]), a flag set iff the texel's
+    footprint in that slab holds a solid cell.
 
     ``detect_sw`` bf16[sp, A, B] 0/1 occupancy in sweep order, ``hats``
     (ma_w, mb_w, am, bm) the tap weights and footprint masks of
-    ``sweep_exact._widened_perspective_hats`` or ``_ortho_hats``. Per
-    32-slab chunk the tap words (:func:`exact_tap_words`, split-chain
-    exact with ``exact_acc``) AND the separable footprint mask give the
-    slab's candidate flag. ``s_valid``, ``flip`` and the sizes are the
-    reference's signature; the hats already carry them.
+    ``sweep_exact._widened_perspective_hats`` or ``_ortho_hats``: the tap
+    words (:func:`exact_tap_words`, split-chain exact with ``wide``) AND
+    the separable footprint mask.
     """
-    del s_valid, a_size, b_size, flip
-    i32 = torch.int32
-    dev = detect_sw.device
     ma_w, mb_w, am_f, bm_f = hats
+    det = exact_tap_words(detect_sw[lo:hi], ma_w[lo:hi], mb_w[lo:hi],
+                          wide).to(torch.int32)
+    fm = (am_f[lo:hi, :, None] * bm_f[lo:hi, None, :]).to(torch.int32)
+    return det, (det & fm) != 0
+
+
+def pack_chunk(flags) -> torch.Tensor:
+    """bool[CH, IH, IW] flags of one 32-slab chunk -> its words
+    int32[IH * IW], bit c set by slab c."""
+    i32 = torch.int32
+    bit_of = torch.arange(CH, dtype=i32, device=flags.device)[:, None, None]
+    # distinct bits: the int32 sum is their OR (bit 31 included)
+    return torch.bitwise_left_shift(flags.to(i32), bit_of).sum(
+        0, dtype=i32).reshape(-1)
+
+
+def _sweep_candidates(detect_sw, hats, inter_h: int, inter_w: int,
+                      exact_acc: bool = False) -> torch.Tensor:
+    """One detection sweep builds a frame's whole candidate bit field:
+    int32[IH * IW, sp / 32], bit (o & 31) of word [texel, o >> 5] set iff
+    the texel's footprint in slab o holds a solid cell
+    (:func:`candidate_chunk` per 32-slab chunk). The reference also takes
+    the slab count, the sweep sizes and the flip; the hats carry them.
+    """
     sp = detect_sw.shape[0]
-    words = torch.empty((sp // CH, inter_h * inter_w), dtype=i32, device=dev)
-    bit_of = torch.arange(CH, dtype=i32, device=dev)[:, None, None]
+    words = torch.empty((sp // CH, inter_h * inter_w), dtype=torch.int32,
+                        device=detect_sw.device)
     for ci in range(sp // CH):
-        lo, hi = ci * CH, (ci + 1) * CH
-        det = exact_tap_words(detect_sw[lo:hi], ma_w[lo:hi], mb_w[lo:hi],
-                              exact_acc).to(i32)
-        fm = (am_f[lo:hi, :, None] * bm_f[lo:hi, None, :]).to(i32)
-        hits = (det & fm) != 0
-        # distinct bits: the int32 sum is their OR (bit 31 included)
-        words[ci] = torch.bitwise_left_shift(hits.to(i32), bit_of).sum(
-            0, dtype=i32).reshape(-1)
+        words[ci] = pack_chunk(candidate_chunk(
+            detect_sw, hats, ci * CH, (ci + 1) * CH, exact_acc)[1])
     return words.t().contiguous()

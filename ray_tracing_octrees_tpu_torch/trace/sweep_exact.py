@@ -545,7 +545,7 @@ def build_shadow_field(volume, light_dir, voxel_size, max_inter: int = 1024,
     hats = _ortho_hats(sa, sb, aa_lo, aa_span, ab_lo, ab_span, sp, S, A, B,
                        IHs, IWs, flip_l, ta, tb, dev)
     bits = mesh_grid._sweep_candidates(
-        (occ_sw > 0).to(torch.bfloat16), hats, S, A, B, IHs, IWs, flip_l,
+        (occ_sw > 0).to(torch.bfloat16), hats, IHs, IWs,
         exact_acc=(ta > 3 or tb > 3))
     return ShadowField(
         bits=bits, nb9=_nb9_for(layouts, axis_l, flip_l, S, ta, tb),
@@ -605,7 +605,7 @@ def _primary_core(cfg, scal_np, width: int, height: int):
 
     hats = _widened_perspective_hats(scal, sp, S, A, B, IH, IW, flip, ta, tb)
     bits_tex = mesh_grid._sweep_candidates(
-        (occ_sw > 0).to(torch.bfloat16), hats, S, A, B, IH, IW, flip,
+        (occ_sw > 0).to(torch.bfloat16), hats, IH, IW,
         exact_acc=(ta > 3 or tb > 3))
 
     rd3 = tuple(c / vs for c in _pixel_rays_sab(scal, consts, axis_world,
@@ -688,18 +688,28 @@ def _shadow_occluded(field: ShadowField, o_vox3, s_live):
             int((~st["resolved"] & ~st["hit"]).sum()), 2 + rounds)
 
 
-def _trace_pixels(cfg, scal_np, leaf_vol, width: int, height: int):
-    """Full-width primary trace for one pose inside the envelope: dict(hit,
-    t, point, normal) of [N] / [N, 3] tensors and the stats."""
+def _trace_rows(cfg, scal_np, leaf_vol, width: int, height: int):
+    """:func:`_primary_core` over the live rows, with each row's hit
+    point and leaf-node normal (:func:`_leaf_normal`): (res, t, point3,
+    nrm3), ``t`` 0 on misses."""
     res = _primary_core(cfg, scal_np, width, height)
-    dev = res["hit"].device
-    f32 = torch.float32
+    leaf_vol = leaf_vol.to(res["hit"].device)
     t1 = torch.where(res["hit"], res["t"], 0.0)
     org3 = tuple(float(v) for v in scal_np[12:15])
     point3, nrm3 = _leaf_normal(
         res["hit"], t1, res["ks"], res["ca"], res["cb"], res["origins1"],
         res["dirs1"], leaf_vol.reshape(-1), int(leaf_vol.shape[0]),
         cfg["axis_world"], org3, float(scal_np[10]))
+    return res, t1, point3, nrm3
+
+
+def _trace_pixels(cfg, scal_np, leaf_vol, width: int, height: int):
+    """Full-width primary trace for one pose inside the envelope: dict(hit,
+    t, point, normal) of [N] / [N, 3] tensors and the stats."""
+    res, t1, point3, nrm3 = _trace_rows(cfg, scal_np, leaf_vol, width,
+                                        height)
+    dev = t1.device
+    f32 = torch.float32
     N = width * height
     pix = res["pix"]
     hit = torch.zeros(N, dtype=torch.bool, device=dev)
@@ -775,16 +785,12 @@ def render_exact_frame(volume, leaf_vol, grid_origin, voxel_size, cam_pos,
             return None
     scal_np = _frame_scal(cfg, fov_deg, aspect, light_dir, base_color,
                           ambient)
-    res = _primary_core(cfg, scal_np, width, height)
+    res, _, point3, nrm3 = _trace_rows(cfg, scal_np, leaf_vol, width,
+                                       height)
     scal = torch.as_tensor(scal_np, device=dev)
     org3 = tuple(scal[12 + c] for c in range(3))
     vs = scal[10]
     hit1 = res["hit"]
-    t1 = torch.where(hit1, res["t"], 0.0)
-    point3, nrm3 = _leaf_normal(
-        hit1, t1, res["ks"], res["ca"], res["cb"], res["origins1"],
-        res["dirs1"], leaf_vol.to(dev).reshape(-1), int(leaf_vol.shape[0]),
-        cfg["axis_world"], org3, vs)
 
     # shade() (RayTracerBVH.cpp:331-336), as render_octree_image's
     l = _unit(scal[34:37])

@@ -115,8 +115,8 @@ def test_const_bundle_ladder_bit_matches():
 
 
 def test_frame_shadow_seed_image_identical():
-    """render_octree_image with shadow_seed / shadow_ladder / safety_cap
-    equals the plain shadowed frame, bit for bit."""
+    """render_octree_image with shadow_seed equals the plain shadowed
+    frame, bit for bit."""
     g = make_sphere_grid(32, device="cpu")
     pyr = to.build_pyramid(g.occ)
     lv = to.build_leaf_volume(pyr)
@@ -125,16 +125,12 @@ def test_frame_shadow_seed_image_identical():
     seed = ts.build_shadow_seed(dil, tuple(-c for c in light), device="cpu")
     cam = Camera(theta=0.3, phi=0.7, radius=2.0)
     W, H = 64, 48
-    n = W * H
     args = (pyr, g.origin, g.voxel_size, cam.get_pos(), cam.get_view(), W, H,
             45.0, W / H)
     kw = dict(shadows=True, leaf_vol=lv, ball_skip=True, light_dir=light,
               device="cpu")
     a = tm.render_octree_image(*args, **kw)
     st = {}
-    b = tm.render_octree_image(
-        *args, **kw, ladder=((0, n // 2), (4, n // 8)),
-        shadow_ladder=((0, n // 2), (4, n // 8)), safety_cap=n // 8,
-        shadow_seed=seed, stats=st)
+    b = tm.render_octree_image(*args, **kw, shadow_seed=seed, stats=st)
     assert torch.equal(a, b)
     assert [t["kind"] for t in st["traces"]] == ["primary", "shadow"]
