@@ -102,9 +102,33 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               them held bitwise against its plain version on its inputs
   18. card vs CPU  trace_octree_fast and the sweep-exact primary on the
               32^3 sphere: equal hit masks and equal t
-  19. lines   the kernels JSON line (each kernel's calls held on the
-              exact tracers' paths under "held_on_paths"), the nvidia-smi
-              line, and last the {"ok": true, "device": {...}} line
+  19. volume init  VolumeRaycastRenderer(device="cuda").init on the 256^3
+              sphere, each texture pass timed (build_mip_chain,
+              precompute_volume, ambient_occlusion, build_skip_distance),
+              then update_indirect_lighting, one splat's
+              dispatch_radiation, carve_at_screen at the frame centre
+              (which must hit), the precompute it asks for and
+              prepare_volume_scene; peak device memory
+  20. volume frame  draw_fast at 1920x1080 at the bench pose, 3 windows of
+              N_VOLUME frames: warp_lookup_multi's count set to 0 before
+              and read after (it must launch), its calls in one frame kept
+              and held bitwise against warp_lookup_multi_reference; lit and
+              background pixels, misses black; ms (min and median of the
+              windows), Mrays/s, the idle share under torch.profiler, the
+              stages (layouts, sweep, ray set-up + gather, shade) by CUDA
+              events
+  21. volume oracle  draw at 480x272 at the same pose: ms, iterations,
+              steps p50 / max, the idle share over the march's first
+              ORACLE_PROFILED iterations; its hit mask must agree with
+              draw_fast's at 480x272 on more than 0.92 of pixels
+  22. volume card vs CPU  on the 32^3 sphere at 96x96: _volume_sweep's
+              packed table and four field channels bitwise equal on the
+              same inputs, draw_fast's image within 1e-4 on all but 0.5% of
+              pixels, draw's hit masks equal on at least 99%
+  23. lines   the kernels JSON line (each kernel's calls held on the
+              exact tracers' and the volume frame's paths under
+              "held_on_paths"), the nvidia-smi line, and last the
+              {"ok": true, "device": {...}} line
 
 Imports nothing of JAX or of the JAX package. Without a CUDA device, or
 without the port package beside it, it exits non-zero and prints no result.
@@ -1308,6 +1332,283 @@ def exact_tracer_phases(ctx: dict) -> dict:
     return out
 
 
+N_VOLUME = 5          # volume frames per timed window (phase 20)
+OW, OH = 480, 272     # the volume oracle's frame (phase 21)
+ORACLE_BAR = 0.92     # hit-mask agreement, tests/test_raymarch_sweep.py:60
+# the oracle's profiled iterations: max_steps 350 + this leaves each ray
+# this many steps (the reference takes 350 off at the far plane's
+# distance), and the march stops one iteration later
+ORACLE_PROFILED = 40
+VOLUME_TOL, VOLUME_SHARE = 1e-4, 0.005   # the CPU tests' image bar
+
+
+def volume_phases(ctx: dict) -> dict:
+    """Phases 19-22: the volume renderer on the 256^3 sphere (init and
+    precompute, carving, indirect light, the sweep scene), its frame at
+    1920x1080 with warp_lookup_multi's calls kept and held, its per-ray
+    oracle at 480x272 against the frame's hit mask, and card against CPU
+    on the 32^3 sphere. Returns the record's section, with the frame's
+    launches ("launches") and held calls ("held") of warp_lookup_multi."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_octrees_tpu_torch.core.grid import make_sphere_grid
+    from ray_tracing_octrees_tpu_torch.models.volume_raycaster import (
+        VolumeRaycastRenderer,
+    )
+    from ray_tracing_octrees_tpu_torch.ops import precompute, sampling
+    from ray_tracing_octrees_tpu_torch.render.camera import Camera
+    from ray_tracing_octrees_tpu_torch.trace import raymarch
+    from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep as rs
+    from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
+    from ray_tracing_octrees_tpu_torch.trace.slab_sweep import (
+        _view_consts, _warp_setup,
+    )
+
+    dev, smi, grid = ctx["dev"], ctx["smi"], ctx["grid"]
+    aspect = WIDTH / HEIGHT
+    rec = {"card": smi}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # 19. init: each texture pass, then the renderer, carving, light
+    torch.cuda.reset_peak_memory_stats()
+    vol = (grid.occ > 0).to(torch.float32)
+    zero = torch.zeros_like(vol)
+    init_ms = {}
+    _, init_ms["build_mip_chain"] = timed(lambda: sampling.build_mip_chain(
+        vol))
+    _, init_ms["precompute_volume"] = timed(
+        lambda: precompute.precompute_volume(vol, zero))
+    _, init_ms["ambient_occlusion"] = timed(
+        lambda: precompute.ambient_occlusion(grid.occ))
+    _, init_ms["build_skip_distance"] = timed(
+        lambda: precompute.build_skip_distance(
+            grid.occ, grid.voxel_size, grid.world_min, grid.world_max))
+    r, init_ms["renderer_init"] = timed(
+        lambda: VolumeRaycastRenderer(device=dev).init(grid))
+    _, init_ms["update_indirect_lighting"] = timed(r.update_indirect_lighting)
+    r.add_splat(np.array([0.3, 0.25, 0.1], np.float32), radius=4.0)
+    _, init_ms["dispatch_radiation_1_splat"] = timed(r.dispatch_radiation)
+    cam = ctx["bench_camera"]()
+    hit, init_ms["carve_at_screen"] = timed(lambda: r.carve_at_screen(
+        cam, WIDTH / 2, HEIGHT / 2, WIDTH, HEIGHT, aspect))
+    if not hit:
+        raise RuntimeError("carve_at_screen at the frame centre missed")
+    _, init_ms["run_precompute"] = timed(r.run_precompute)
+    _, init_ms["prepare_volume_scene"] = timed(r.sweep_scene)
+    rec["init_ms"] = init_ms
+    rec["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+    log("volume init", f"[{smi}] 256^3 sphere: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in init_ms.items())
+        + f"; peak {rec['init_peak_bytes'] / 2 ** 30:.2f} GiB")
+
+    # 20. the frame at 1920x1080, the bench pose
+    torch.cuda.reset_peak_memory_stats()
+
+    def frame(c, w=WIDTH, h=HEIGHT):
+        return r.draw_fast(c, w, h, w / h)
+
+    img0, first_ms = timed(lambda: frame(cam))
+    wk.warp_lookup_multi.launches = 0
+    calls, restore = held_calls([(rs, "warp_lookup_multi")])
+    out = frame(cam)
+    restore()
+    wins = []
+    for _ in range(3):
+        t = time.perf_counter()
+        for _ in range(N_VOLUME):
+            cam.phi += 1e-4
+            frame(cam)
+        torch.cuda.synchronize()
+        wins.append((time.perf_counter() - t) / N_VOLUME * 1e3)
+    launches = wk.warp_lookup_multi.launches
+    n_frames = 1 + 3 * N_VOLUME
+    held = {"warp_lookup_multi": hold(calls["warp_lookup_multi"],
+                                      wk.warp_lookup_multi_reference)}
+    require_held("the volume frame", held)
+    if launches < n_frames:
+        raise RuntimeError(f"warp_lookup_multi launched {launches} times in "
+                           f"{n_frames} volume frames")
+    # the kernel on this path's inputs: 5 planes, one lin a pixel
+    (tab, ln), _ = calls["warp_lookup_multi"][0]
+    planes, th, tw = tab.shape
+    flat = torch.where(ln < 0, 0, (ln >> 10) * tw + (ln & 1023)).long()
+    flat_p = flat[None] + torch.arange(planes, device=dev)[:, None, None] \
+        * (th * tw)
+    _, per = profiled(lambda: wk.warp_lookup_multi(tab, ln), 50)
+    k_ms = sum(v for k, v in per.items() if "warp_lookup_kernel" in k) \
+        or None
+    _, lper = profiled(lambda: torch.take(tab, flat_p), 50)
+    n_px = ln.numel()
+    l_bound, l_by = bound(n_px * (4 + 4 * planes)
+                          + planes * distinct(flat, ln >= 0) * 4, 5 * n_px)
+    lookup = dict(
+        ms=k_ms, wrapper_ms=cuda_ms(lambda: wk.warp_lookup_multi(tab, ln),
+                                    200),
+        plain_ms=cuda_ms(lambda: wk.warp_lookup_multi_reference(tab, ln),
+                         20),
+        library_ms=sum(lper.values()) or None, bound_ms=l_bound,
+        bound_by=l_by, bound_share=l_bound / k_ms if k_ms else None,
+        planes=planes, table=[th, tw], pixels=n_px,
+        miss_share=float((ln < 0).float().mean()))
+    log("volume frame", f"[{smi}] warp_lookup_multi on the frame's "
+        f"{planes} planes of {th}x{tw}, {n_px} px: kernel {k_ms} ms "
+        f"(profiler), wrapper {lookup['wrapper_ms']:.4f}, plain "
+        f"{lookup['plain_ms']:.4f}, torch.take {lookup['library_ms']}, "
+        f"bound {l_bound * 1e3:.2f} us ({l_by})")
+    color, alpha = out["color"], out["alpha"]
+    if tuple(color.shape) != (HEIGHT, WIDTH, 4) or not bool(
+            torch.isfinite(color).all()):
+        raise RuntimeError(f"bad volume frame {tuple(color.shape)}")
+    hits = alpha >= 0.1
+    n_lit = int((hits & (color[..., :3].amax(-1) > 0)).sum())
+    n_bg = int((~hits).sum())
+    black = bool((color[..., :3][~hits] == 0).all())
+    if n_lit == 0 or n_bg == 0 or not black:
+        raise RuntimeError(f"volume frame: {n_lit} lit, {n_bg} background "
+                           f"pixels, misses black {black}")
+    wall, per = profiled(lambda: frame(cam), 5)
+    busy = sum(per.values())
+    # the frame's stages, by CUDA events (layouts rebuilt each call)
+    scene = r.sweep_scene()
+    args = (scene, grid.origin, cam.get_pos(), cam.get_view(), 45.0, aspect)
+    det_bf, cats, scal_np, m = rs._volume_frame_inputs(*args)
+    scal = torch.as_tensor(scal_np, device=dev)
+    ih, iw = m["inter_h"], m["inter_w"]
+    sweep = lambda: rs._volume_sweep(det_bf, cats, scal, m["S"], m["A"],
+                                     m["B"], ih, iw, m["flip"], m["nf"])
+    packed, vals = sweep()
+    consts = torch.as_tensor(_view_consts(scal_np), device=dev)
+
+    def gather():
+        lin, _, _, _ = _warp_setup(scal, m["axis_world"], ih, iw, WIDTH,
+                                   HEIGHT, consts)
+        return rs._gather_table(packed, vals, lin, ih, iw, WIDTH, HEIGHT)
+
+    lin, behind, dirs, d_s_n = _warp_setup(scal, m["axis_world"], ih, iw,
+                                           WIDTH, HEIGHT, consts)
+    w_depth, w_vals = gather()
+
+    def layouts():
+        scene.layouts.clear()
+        return rs._volume_frame_inputs(*args)
+
+    stage_ms = {
+        "layouts": cuda_ms(layouts, 2),
+        "sweep": cuda_ms(sweep, 3),
+        "ray setup + gather": cuda_ms(gather, 10),
+        "shade": cuda_ms(lambda: rs._shade_pixels(
+            w_depth, w_vals, behind, dirs, d_s_n, scal, 0.0, WIDTH, HEIGHT),
+            10),
+    }
+    frame_ms = min(wins)
+    rec["frame"] = dict(
+        resolution=f"{WIDTH}x{HEIGHT}", pose="bench (theta 0.9, phi 0.8, "
+        "radius 0.75 x extent)", frame_ms=frame_ms,
+        frame_ms_median=sorted(wins)[1], frame_ms_windows=wins,
+        first_frame_ms=first_ms,
+        mrays_per_s=WIDTH * HEIGHT * 2 / frame_ms / 1e3,
+        mrays_primary_per_s=WIDTH * HEIGHT / frame_ms / 1e3,
+        table=[ih, iw], sweep_axis=m["axis_world"], flip=m["flip"],
+        profiled_wall_ms=wall, device_busy_ms=busy if per else None,
+        idle_share=1.0 - busy / wall if per else None, stage_ms=stage_ms,
+        lit=n_lit, background=n_bg,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        launches={"warp_lookup_multi": launches}, frames=n_frames,
+        warp_lookup_multi=lookup)
+    log("volume frame", f"[{smi}] draw_fast {WIDTH}x{HEIGHT}: {frame_ms:.3f} "
+        f"ms (windows {', '.join(f'{w:.3f}' for w in wins)}; first "
+        f"{first_ms:.1f}), {rec['frame']['mrays_per_s']:.1f} Mrays/s at 2 "
+        f"rays a pixel; table {ih}x{iw}, axis {m['axis_world']}; idle share "
+        f"{rec['frame']['idle_share']}; stages " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stage_ms.items())
+        + f" ms; {n_lit} lit, {n_bg} background; warp_lookup_multi "
+        f"{launches} launches in {n_frames} frames, held {held}; peak "
+        f"{rec['frame']['peak_bytes'] / 2 ** 30:.2f} GiB")
+
+    # 21. the per-ray oracle at 480x272, against the frame's hit mask
+    cam = ctx["bench_camera"]()
+    fast = frame(cam, OW, OH)
+    torch.cuda.reset_peak_memory_stats()
+    ref, oracle_ms = timed(lambda: r.draw(cam, OW, OH, OW / OH))
+    oracle_peak = torch.cuda.max_memory_allocated()
+    hit_f = fast["alpha"] >= 0.1
+    hit_o = ref["alpha"] >= 0.1
+    agree = float((hit_f == hit_o).float().mean())
+    steps = ref["steps"].reshape(-1).float()
+    # the idle share over the march's first ORACLE_PROFILED iterations
+    # (the same ops each iteration; a whole frame's ~10^6 kernel events
+    # take minutes to sum)
+    iv = np.linalg.inv(cam.get_view())
+    ip = np.linalg.inv(cam.get_proj(OW / OH))
+    o_wall, o_per = profiled(lambda: raymarch.raymarch_volume(
+        r.textures, cam.get_pos(), iv, ip, OW, OH,
+        max_steps=350 + ORACLE_PROFILED, device=dev), 1)
+    o_busy = sum(o_per.values())
+    rec["oracle"] = dict(
+        resolution=f"{OW}x{OH}", ms=oracle_ms, iters=ref["iters"],
+        steps_p50=float(steps.median()), steps_max=float(steps.max()),
+        hit_share=float(hit_o.float().mean()), hit_agreement=agree,
+        bar=ORACLE_BAR, profiled_wall_ms=o_wall,
+        profiled_iterations=ORACLE_PROFILED,
+        device_busy_ms=o_busy if o_per else None,
+        idle_share=1.0 - o_busy / o_wall if o_per else None,
+        peak_bytes=oracle_peak, octree_skip_t=r.octree_skip_t)
+    log("volume oracle", f"[{smi}] draw {OW}x{OH}: {oracle_ms:.1f} ms, "
+        f"{ref['iters']} iterations, steps p50 {rec['oracle']['steps_p50']} "
+        f"max {rec['oracle']['steps_max']}; hit mask agrees with draw_fast "
+        f"on {agree:.4f} (bar {ORACLE_BAR}); idle share "
+        f"{rec['oracle']['idle_share']} over its first {ORACLE_PROFILED} "
+        f"iterations; peak {oracle_peak / 2 ** 30:.2f} "
+        "GiB")
+    if not agree > ORACLE_BAR:
+        raise RuntimeError(f"the volume oracle's hit mask agrees with the "
+                           f"frame on {agree:.4f}, not over {ORACLE_BAR}")
+
+    # 22. the card against the CPU on the 32^3 sphere, 96x96
+    small = ctx["small"]
+    pc = Camera(theta=0.5, phi=0.8, radius=2.2)
+    cpu_r = VolumeRaycastRenderer(device="cpu").init(small)
+    gpu_r = VolumeRaycastRenderer(device=dev).init(small)
+    sc = cpu_r.sweep_scene()
+    det_c, cats_c, scal_c, mc = rs._volume_frame_inputs(
+        sc, small.origin, pc.get_pos(), pc.get_view(), 45.0, 1.0)
+    targs = (mc["S"], mc["A"], mc["B"], mc["inter_h"], mc["inter_w"],
+             mc["flip"], mc["nf"])
+    p_c, v_c = rs._volume_sweep(det_c, cats_c, torch.as_tensor(scal_c),
+                                *targs)
+    p_g, v_g = rs._volume_sweep(det_c.to(dev), [c.to(dev) for c in cats_c],
+                                torch.as_tensor(scal_c, device=dev), *targs)
+    tables_equal = torch.equal(p_g.cpu(), p_c) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(v_g, v_c))
+    f_c = cpu_r.draw_fast(pc, 96, 96, 1.0)
+    f_g = gpu_r.draw_fast(pc, 96, 96, 1.0)
+    diff = (f_g["color"].cpu() - f_c["color"]).abs().amax(-1)
+    over = float((diff > VOLUME_TOL).float().mean())
+    d_c = cpu_r.draw(pc, 96, 96, 1.0)
+    d_g = gpu_r.draw(pc, 96, 96, 1.0)
+    d_agree = float(((d_g["alpha"].cpu() >= 0.1) == (d_c["alpha"] >= 0.1))
+                    .float().mean())
+    rec["card_vs_cpu"] = dict(
+        sweep_tables_bitwise=tables_equal, draw_fast_share_over_1e4=over,
+        draw_fast_max_abs=float(diff.max()), draw_hit_agreement=d_agree,
+        draw_iters=[d_g["iters"], d_c["iters"]])
+    log("volume card vs CPU", f"32^3 sphere 96x96: _volume_sweep's packed "
+        f"table and 4 channels equal {tables_equal}; draw_fast share over "
+        f"1e-4 {over:.5f} (max {float(diff.max()):.3g}); draw hit masks "
+        f"agree on {d_agree:.4f}, iterations {d_g['iters']} / {d_c['iters']}")
+    if not (tables_equal and over <= VOLUME_SHARE and d_agree >= 0.99):
+        raise RuntimeError(f"the volume renderer on the card disagrees with "
+                           f"the CPU: {rec['card_vs_cpu']}")
+    return dict(rec, launches=launches, held=held)
+
+
 def main() -> int:
     import torch
 
@@ -1866,6 +2167,14 @@ def main() -> int:
         dev=dev, smi=smi, vol=vol, pyr=pyr, origin=origin, vox=vox,
         light_dir=light_dir, layouts=layouts, grid=grid, occ_np=occ_np,
         small=small, bench_camera=bench_camera, exact_camera=exact_camera))
+    # 19-22. the volume renderer
+    volume = volume_phases(dict(dev=dev, smi=smi, grid=grid, small=small,
+                                bench_camera=bench_camera))
+    exact["launches"]["volume frame (phase 20)"] = {
+        "warp_lookup_multi": volume.pop("launches")}
+    for k, h in volume.pop("held").items():
+        exact["held"].setdefault(k, {})["volume frame (phase 20)"] = h
+
     by_path = {
         "warp_frame": {"fast frame (phase 4)": launches["warp_frame"]},
         "warp_lookup": {"sweep_first_hit (phase 7)":
@@ -1877,7 +2186,7 @@ def main() -> int:
         for k, v in counts.items():
             by_path[k][path] = v
 
-    # 19. lines
+    # 23. lines
     held = exact["held"]
     record = {"kernels": [{
         "name": "warp_frame",
@@ -1950,6 +2259,8 @@ def main() -> int:
                   kernel_resources(ptxas.get("warp_lookup", {}), n).items()},
         **({"edge_ms_warm": lookup_edge_ms} if kname == "warp_lookup"
            else {}),
+        **({"on_volume_frame_inputs": volume["frame"]["warp_lookup_multi"]}
+           if kname == "warp_lookup_multi" else {}),
         **{k: lk[k] for k in ("first_port_ms", "first_port_ms_cold",
                               "vector_in_turns_ms", "vector_in_turns_ms_cold")
            if k in lk},
@@ -1967,6 +2278,7 @@ def main() -> int:
         "parity": checks_parity, "bench": bench_rec,
         "exact_tracers": {k: v for k, v in exact.items()
                           if k not in ("launches", "held")},
+        "volume": volume,
         "card": smi}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -13,7 +13,9 @@ Counterpart of ``ray_tracing_octrees_tpu/bench.py``, with its names
 3. parity line: ``sweep_first_hit`` against the DDA oracle
    ``trace_octree`` at 240 x 136 and the headline's aspect: hit-mismatch
    fraction and depth RMS in voxels on agreed hits;
-4. exact section: at the headline pose the JAX bench's three exact
+4. exact section (left out with ``--skip-exact`` or a non-empty
+   ``RTO_BENCH_SKIP_EXACT``, as in the JAX bench; ``exact_skip_reason``
+   says so): at the headline pose the JAX bench's three exact
    tracers in its order, the first whose envelope holds the pose timed:
    ``render_fast_exact_frame``, then ``sweep_exact.render_exact_frame``,
    then the DDA ladder (``render_octree_image`` over the leaf volume with
@@ -186,13 +188,15 @@ def _backend(dev: torch.device) -> str:
 def run_bench(scene: str = "", width: int = 1920, height: int = 1080,
               iters: int = 20, dim: int = 256,
               exact_res: Tuple[int, int] = EXACT_RES,
-              n_poses: int = 16, device: DeviceLike = None) -> dict:
+              n_poses: int = 16, skip_exact: bool = False,
+              device: DeviceLike = None) -> dict:
     """Run the benchmark; returns the record (one dict).
 
     ``scene``: a scene cache path, "sphere", or "" for :func:`find_scene`
     and else the ``dim``^3 sphere. ``exact_res``: the exact frames'
-    size (the JAX bench's 1920 x 1088 default). Raises if a section
-    fails.
+    size (the JAX bench's 1920 x 1088 default). ``skip_exact`` leaves out
+    the exact section and records why in ``exact_skip_reason`` (None when
+    the section ran). Raises if a section fails.
     """
     from ray_tracing_octrees_tpu_torch.core.cache import load_voxel_grid
     from ray_tracing_octrees_tpu_torch.core.grid import (
@@ -283,88 +287,94 @@ def run_bench(scene: str = "", width: int = 1920, height: int = 1080,
     _log(f"parity {parity}")
 
     # 4. exact section
-    t_exact0 = time.time()
-    sw, sh = exact_res
-
-    def fast_exact_frame(c):
-        out = fast_exact.render_fast_exact_frame(
-            vol, shadow, origin, vox, c.get_pos(), c.get_view(), 45.0,
-            aspect, sw, sh, light_dir=light_dir, with_stats=True,
-            layouts=layouts, device=dev)
-        if out is not None and (out[1]["overflow"] or out[1]["unresolved"]):
-            raise RuntimeError(f"exact frame dropped pixels: {out[1]}")
-        return out
-
-    leaf_vol = build_leaf_volume(pyr)
-    sfld = sweep_exact.build_shadow_field(vol, light_dir, vox,
-                                          layouts=layouts, device=dev)
-
-    def sweep_exact_frame(c):
-        if sfld is None:
-            return None
-        out = sweep_exact.render_exact_frame(
-            vol, leaf_vol, origin, vox, c.get_pos(), c.get_view(), sw, sh,
-            45.0, aspect, light_dir=light_dir, shadows=True,
-            shadow_field=sfld, layouts=layouts, device=dev)
-        if out is not None and (out[1]["unresolved"]
-                                or out[1]["s_unresolved"]):
-            raise RuntimeError(f"sweep-exact frame left rays: {out[1]}")
-        return out
-
-    dil = slab_sweep.SweepLayouts(slab_sweep.dilate_occupancy(vol, device=dev))
-
-    def dda_frame(c):
-        st = {}
-        img, seeded = dda_ladder_frame(pyr, leaf_vol, dil, origin, vox, c,
-                                       sw, sh, aspect, light_dir, dev, st)
-        return img, dict(seeded=seeded, traces=st)
-
-    def time_exact(frame, c):
-        """(best ms, window ms, stats) over 3 windows of N_EXACT frames
-        from camera ``c``, or None outside the tracer's envelope."""
-        first = frame(c)
-        if first is None:
-            return None
-        _sync(dev)
-        wins = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for _ in range(N_EXACT):
-                c.phi += 1e-4
-                frame(c)
-            _sync(dev)
-            wins.append((time.perf_counter() - t0) / N_EXACT * 1e3)
-        return min(wins), wins, first[1]
-
+    exact_mrays = exact_path = exact_head = exact_radius_2 = None
     exact_tried = []
-    exact_path = head = None
-    for name, frame in (("fast_exact", fast_exact_frame),
-                        ("sweep", sweep_exact_frame), ("dda", dda_frame)):
-        head = time_exact(frame, camera())
-        if head is not None:
-            exact_path = name
-            break
-        exact_tried.append(f"{name} outside its envelope at the headline "
-                           f"pose (radius 0.75 x extent)")
-    exact_head = dict(frame_ms=head[0], frame_ms_windows=head[1],
-                      stats=head[2])
-    if exact_path == "dda":
-        exact_head["stats"] = dict(seeded=head[2]["seeded"],
-                                   **dda_counts(head[2]["traces"]))
-    exact_mrays = sw * sh * 2 / head[0] / 1e3
-    near = time_exact(fast_exact_frame, camera(radius_f=EXACT_RADIUS))
-    exact_radius_2 = {"theta": 0.9, "phi": 0.8, "radius_f": EXACT_RADIUS,
-                      "resolution": f"{sw}x{sh}"}
-    if near is None:
-        exact_radius_2.update(path=None, reason="fast_exact outside its "
-                              "envelope at this pose")
-    else:
-        exact_radius_2.update(
-            path="fast_exact", frame_ms=near[0], frame_ms_windows=near[1],
-            mrays=sw * sh * 2 / near[0] / 1e3, stats=near[2])
-    timings["exact_section_s"] = time.time() - t_exact0
-    _log(f"exact: headline pose {exact_path} {head[0]:.3f} ms; radius "
-         f"{EXACT_RADIUS}: {exact_radius_2.get('frame_ms')} ms")
+    exact_skip_reason = "skip requested (flag/env)" if skip_exact else None
+    if not skip_exact:
+        t_exact0 = time.time()
+        sw, sh = exact_res
+
+        def fast_exact_frame(c):
+            out = fast_exact.render_fast_exact_frame(
+                vol, shadow, origin, vox, c.get_pos(), c.get_view(), 45.0,
+                aspect, sw, sh, light_dir=light_dir, with_stats=True,
+                layouts=layouts, device=dev)
+            if out is not None and (out[1]["overflow"]
+                                    or out[1]["unresolved"]):
+                raise RuntimeError(f"exact frame dropped pixels: {out[1]}")
+            return out
+
+        leaf_vol = build_leaf_volume(pyr)
+        sfld = sweep_exact.build_shadow_field(vol, light_dir, vox,
+                                              layouts=layouts, device=dev)
+
+        def sweep_exact_frame(c):
+            if sfld is None:
+                return None
+            out = sweep_exact.render_exact_frame(
+                vol, leaf_vol, origin, vox, c.get_pos(), c.get_view(), sw, sh,
+                45.0, aspect, light_dir=light_dir, shadows=True,
+                shadow_field=sfld, layouts=layouts, device=dev)
+            if out is not None and (out[1]["unresolved"]
+                                    or out[1]["s_unresolved"]):
+                raise RuntimeError(f"sweep-exact frame left rays: {out[1]}")
+            return out
+
+        dil = slab_sweep.SweepLayouts(
+            slab_sweep.dilate_occupancy(vol, device=dev))
+
+        def dda_frame(c):
+            st = {}
+            img, seeded = dda_ladder_frame(pyr, leaf_vol, dil, origin, vox, c,
+                                           sw, sh, aspect, light_dir, dev, st)
+            return img, dict(seeded=seeded, traces=st)
+
+        def time_exact(frame, c):
+            """(best ms, window ms, stats) over 3 windows of N_EXACT frames
+            from camera ``c``, or None outside the tracer's envelope."""
+            first = frame(c)
+            if first is None:
+                return None
+            _sync(dev)
+            wins = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(N_EXACT):
+                    c.phi += 1e-4
+                    frame(c)
+                _sync(dev)
+                wins.append((time.perf_counter() - t0) / N_EXACT * 1e3)
+            return min(wins), wins, first[1]
+
+        exact_tried = []
+        exact_path = head = None
+        for name, frame in (("fast_exact", fast_exact_frame),
+                            ("sweep", sweep_exact_frame), ("dda", dda_frame)):
+            head = time_exact(frame, camera())
+            if head is not None:
+                exact_path = name
+                break
+            exact_tried.append(f"{name} outside its envelope at the headline "
+                               f"pose (radius 0.75 x extent)")
+        exact_head = dict(frame_ms=head[0], frame_ms_windows=head[1],
+                          stats=head[2])
+        if exact_path == "dda":
+            exact_head["stats"] = dict(seeded=head[2]["seeded"],
+                                       **dda_counts(head[2]["traces"]))
+        exact_mrays = sw * sh * 2 / head[0] / 1e3
+        near = time_exact(fast_exact_frame, camera(radius_f=EXACT_RADIUS))
+        exact_radius_2 = {"theta": 0.9, "phi": 0.8, "radius_f": EXACT_RADIUS,
+                          "resolution": f"{sw}x{sh}"}
+        if near is None:
+            exact_radius_2.update(path=None, reason="fast_exact outside its "
+                                  "envelope at this pose")
+        else:
+            exact_radius_2.update(
+                path="fast_exact", frame_ms=near[0], frame_ms_windows=near[1],
+                mrays=sw * sh * 2 / near[0] / 1e3, stats=near[2])
+        timings["exact_section_s"] = time.time() - t_exact0
+        _log(f"exact: headline pose {exact_path} {head[0]:.3f} ms; radius "
+             f"{EXACT_RADIUS}: {exact_radius_2.get('frame_ms')} ms")
 
     # 5. parity ensemble
     t_par0 = time.time()
@@ -412,8 +422,8 @@ def run_bench(scene: str = "", width: int = 1920, height: int = 1080,
         "parity_ensemble": parity_ensemble,
         "exact_tracer_mrays": exact_mrays,
         "exact_tracer_path": exact_path,
-        "exact_tracer_note": EXACT_NOTES[exact_path],
-        "exact_skip_reason": None,
+        "exact_tracer_note": EXACT_NOTES.get(exact_path),
+        "exact_skip_reason": exact_skip_reason,
         "exact_tried": exact_tried,
         "exact_headline": exact_head,
         "exact_radius_2": exact_radius_2,
@@ -437,9 +447,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--out", default=DEFAULT_OUT,
                    help="where the whole record goes (JSON)")
+    p.add_argument("--skip-exact", action="store_true",
+                   help="skip the exact-tracer section (also: a non-empty "
+                        "RTO_BENCH_SKIP_EXACT)")
     args = p.parse_args(argv)
+    skip = args.skip_exact or bool(os.environ.get("RTO_BENCH_SKIP_EXACT"))
     rec = run_bench(scene=args.scene, width=args.width, height=args.height,
-                    iters=args.iters, dim=args.dim)
+                    iters=args.iters, dim=args.dim, skip_exact=skip)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(rec, f, indent=1)

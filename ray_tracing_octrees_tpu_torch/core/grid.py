@@ -62,6 +62,20 @@ class VoxelGrid:
                             dtype=torch.float32, device=self.device)
         return self.origin + dims * self.voxel_size
 
+    def sample_safe(self, x, y, z) -> torch.Tensor:
+        """Occupancy with out-of-range treated as EMPTY.
+
+        Matches ``getVoxelSafe`` (OctreeVoxel.cpp:694-702): out-of-range
+        coordinates read as EMPTY. Vectorized over any index shape.
+        """
+        x, y, z = (torch.as_tensor(c, device=self.device) for c in (x, y, z))
+        inb = ((x >= 0) & (y >= 0) & (z >= 0) & (x < self.dim_x)
+               & (y < self.dim_y) & (z < self.dim_z))
+        xc = x.clamp(0, self.dim_x - 1).long()
+        yc = y.clamp(0, self.dim_y - 1).long()
+        zc = z.clamp(0, self.dim_z - 1).long()
+        return torch.where(inb, self.occ[zc, yc, xc], 0).to(torch.uint8)
+
     @staticmethod
     def create(occ, origin=(0.0, 0.0, 0.0), voxel_size=1.0,
                device: DeviceLike = None) -> "VoxelGrid":

@@ -83,6 +83,14 @@ def _fdiv(x: torch.Tensor, n) -> torch.Tensor:
     return x / torch.full((), n, dtype=x.dtype, device=x.device)
 
 
+def _cdiv(x: torch.Tensor, c) -> torch.Tensor:
+    """``x / c`` for a constant ``c`` as the reference's compiled form
+    rounds it: ``x`` times the f32 reciprocal of ``c`` (XLA rewrites a
+    division by a constant so). One f32 product, so every device gives the
+    same bits."""
+    return x * float(np.float32(1.0) / np.float32(c))
+
+
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded f32 square root on every device. The CPU's
     vectorized f32 ``torch.sqrt`` is an ulp off on some inputs, where the
@@ -250,11 +258,13 @@ class SweepLayouts:
 # the sweep
 # --------------------------------------------------------------------------
 
-def _bilinear_hats(scal, sp: int, s_valid: int, a_size: int, b_size: int,
-                   inter_h: int, inter_w: int, flip: bool):
-    """The sweep's [sp, IH, A] and [sp, IW, B] bf16 linear-interpolation
-    hat stacks: texel centres projected onto each slab."""
-    f32, bf16 = torch.float32, torch.bfloat16
+def _slab_coords(scal, sp: int, s_valid: int, inter_h: int, inter_w: int,
+                 flip: bool, o_base: float = 0.0):
+    """Texel centres projected onto each of ``sp`` layout slabs: (pa f32[sp,
+    IH], pb f32[sp, IW]) in voxel units of the A and B axes. ``o_base``
+    offsets the local slab rows into global ones (a slab segment of a
+    larger sweep)."""
+    f32 = torch.float32
     dev = scal.device
     eye_s, eye_a, eye_b, z0 = scal[0], scal[1], scal[2], scal[3]
     a_min, a_max, b_min, b_max = scal[4], scal[5], scal[6], scal[7]
@@ -262,18 +272,34 @@ def _bilinear_hats(scal, sp: int, s_valid: int, a_size: int, b_size: int,
         torch.arange(inter_h, dtype=f32, device=dev) + 0.5), inter_h)
     ub = b_min + _fdiv((b_max - b_min) * (
         torch.arange(inter_w, dtype=f32, device=dev) + 0.5), inter_w)
-    o_all = torch.arange(sp, dtype=f32, device=dev)
+    o_all = torch.arange(sp, dtype=f32, device=dev) + float(o_base)
     k_all = (float(s_valid) - 1.0 - o_all) if flip else o_all
     s_all = (z0 - eye_s) / (k_all + 0.5 - eye_s)
     pa_all = (ua[None, :] - eye_a) / s_all[:, None] + eye_a
     pb_all = (ub[None, :] - eye_b) / s_all[:, None] + eye_b
-    ia = torch.arange(a_size, dtype=f32, device=dev)
-    ib = torch.arange(b_size, dtype=f32, device=dev)
+    return pa_all, pb_all
+
+
+def _hats_from_coords(pa_all, pb_all, a_size: int, b_size: int):
+    """bf16 linear-interpolation hats [sp, IH, A] and [sp, IW, B] of the
+    projected texel centres of :func:`_slab_coords`."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    ia = torch.arange(a_size, dtype=f32, device=pa_all.device)
+    ib = torch.arange(b_size, dtype=f32, device=pa_all.device)
     ma_all = torch.clamp(1.0 - (pa_all[..., None] - 0.5 - ia).abs(),
                          min=0.0).to(bf16)
     mb_all = torch.clamp(1.0 - (pb_all[..., None] - 0.5 - ib).abs(),
                          min=0.0).to(bf16)
     return ma_all, mb_all
+
+
+def _bilinear_hats(scal, sp: int, s_valid: int, a_size: int, b_size: int,
+                   inter_h: int, inter_w: int, flip: bool):
+    """The sweep's [sp, IH, A] and [sp, IW, B] bf16 linear-interpolation
+    hat stacks: texel centres projected onto each slab."""
+    return _hats_from_coords(
+        *_slab_coords(scal, sp, s_valid, inter_h, inter_w, flip), a_size,
+        b_size)
 
 
 def _sweep_core(vol_bf, scal, s_valid: int, a_size: int, b_size: int,

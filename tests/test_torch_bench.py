@@ -202,3 +202,42 @@ def test_scene_file_runs_recentred(tmp_path):
     assert rec["metric"] == "raytrace_scene16_18p_primary+shadow"
     assert rec["parity_ensemble"]["n_poses"] == 1
     assert 0 < rec["hit_fraction"] < 1
+
+
+def test_skip_exact_records_the_reason():
+    """``run_bench(skip_exact=True)`` leaves out the exact section and says
+    why in ``exact_skip_reason``, as the JAX bench does."""
+    rec = bench.run_bench(scene="sphere", width=32, height=18, iters=1,
+                          dim=16, n_poses=1, skip_exact=True, device="cpu")
+    assert rec["exact_skip_reason"] == "skip requested (flag/env)"
+    assert rec["exact_tracer_path"] is None
+    assert rec["exact_tracer_mrays"] is None
+    assert rec["exact_headline"] is None and rec["exact_radius_2"] is None
+    assert rec["exact_tried"] == []
+    assert "exact_section_s" not in rec["timings_s"]
+    assert _jax_record_keys() - {"vs_baseline"} <= set(rec)
+    assert rec["parity_ensemble"]["n_poses"] == 1
+    json.dumps(rec)
+
+
+@pytest.mark.parametrize("how", ["flag", "env", "neither"])
+def test_main_skip_exact_flag_and_env(record, tmp_path, monkeypatch, capsys,
+                                      how):
+    """``--skip-exact`` and a non-empty ``RTO_BENCH_SKIP_EXACT`` each ask
+    run_bench to skip the exact section; with neither it runs."""
+    seen = {}
+
+    def fake_run_bench(**kw):
+        seen.update(kw)
+        return record
+
+    monkeypatch.setattr(bench, "run_bench", fake_run_bench)
+    monkeypatch.delenv("RTO_BENCH_SKIP_EXACT", raising=False)
+    argv = ["--out", str(tmp_path / "r.json")]
+    if how == "flag":
+        argv.append("--skip-exact")
+    elif how == "env":
+        monkeypatch.setenv("RTO_BENCH_SKIP_EXACT", "1")
+    bench.main(argv)
+    capsys.readouterr()
+    assert seen["skip_exact"] is (how != "neither")

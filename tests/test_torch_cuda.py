@@ -556,3 +556,81 @@ def test_unfused_fast_frame_on_card(scene):
     splitq = torch.round(split.clamp(0.0, 1.0) * 255.0) / 255.0
     close = (splitq - fused).abs().amax(-1) <= 1.5 / 255.0
     assert float(close.float().mean()) > 0.995
+
+
+# -- the volume renderer: its frame's gather on warp_lookup_multi ---------
+
+@pytest.fixture(scope="module")
+def volume_pair():
+    """The volume renderer on the 32^3 sphere on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from ray_tracing_octrees_tpu_torch.models.volume_raycaster import (
+        VolumeRaycastRenderer,
+    )
+
+    torch.set_num_threads(2)
+    g = make_sphere_grid(32, device="cpu")
+    return {dev: VolumeRaycastRenderer(device=dev).init(g)
+            for dev in ("cpu", "cuda")}
+
+
+@pytest.mark.parametrize("pose", [dict(theta=0.5, phi=0.8, radius=2.2),
+                                  dict(theta=-0.4, phi=2.5, radius=1.6)])
+def test_volume_frame_gather_held_on_card(volume_pair, pose):
+    """draw_fast on the card launches warp_lookup_multi once, bitwise
+    against its plain version on its own inputs; the image is within 1e-4
+    of the CPU's on all but 0.5% of pixels."""
+    from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep
+
+    cam = Camera(**pose)
+    kept = []
+    real = raymarch_sweep.warp_lookup_multi
+
+    def keep(tables, lin):
+        out = real(tables, lin)
+        kept.append((tables, lin, out.clone()))
+        return out
+
+    raymarch_sweep.warp_lookup_multi = keep
+    try:
+        before = warp_kernel.warp_lookup_multi.launches
+        gpu = volume_pair["cuda"].draw_fast(cam, 160, 120, 160 / 120)
+        assert warp_kernel.warp_lookup_multi.launches == before + 1
+    finally:
+        raymarch_sweep.warp_lookup_multi = real
+    (tables, lin, out), = kept
+    assert torch.equal(out, warp_kernel.warp_lookup_multi_reference(tables,
+                                                                    lin))
+    cpu = volume_pair["cpu"].draw_fast(cam, 160, 120, 160 / 120)
+    diff = (gpu["color"].cpu() - cpu["color"]).abs().amax(-1)
+    assert float((diff > 1e-4).float().mean()) <= 0.005
+
+
+def test_volume_sweep_tables_card_vs_cpu(volume_pair):
+    """_volume_sweep's packed table and four field channels: equal bits on
+    the card and the CPU from the same inputs."""
+    from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep as rs
+
+    scene = volume_pair["cpu"].sweep_scene()
+    cam = Camera(theta=1.2, phi=4.0, radius=2.0)
+    det, cats, scal, m = rs._volume_frame_inputs(
+        scene, scene.box_min, cam.get_pos(), cam.get_view(), 45.0, 1.0)
+    targs = (m["S"], m["A"], m["B"], m["inter_h"], m["inter_w"], m["flip"],
+             m["nf"])
+    pc, vc = rs._volume_sweep(det, cats, torch.as_tensor(scal), *targs)
+    pg, vg = rs._volume_sweep(det.cuda(), [c.cuda() for c in cats],
+                              torch.as_tensor(scal, device="cuda"), *targs)
+    assert torch.equal(pg.cpu(), pc)
+    for a, b in zip(vg, vc):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_volume_oracle_card_vs_cpu(volume_pair):
+    """The per-ray oracle on the card: the CPU's hit mask on >= 99% of
+    pixels, the same iterations."""
+    cam = Camera(theta=0.4, phi=0.8, radius=2.0)
+    out = {dev: r.draw(cam, 48, 48, 1.0) for dev, r in volume_pair.items()}
+    hits = [out[d]["alpha"].cpu() >= 0.1 for d in ("cpu", "cuda")]
+    assert float((hits[0] == hits[1]).float().mean()) >= 0.99
+    assert out["cuda"]["iters"] == out["cpu"]["iters"]

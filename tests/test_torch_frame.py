@@ -163,6 +163,7 @@ def _entry_points():
     from ray_tracing_octrees_tpu_torch.core.octree import build_pyramid
     from ray_tracing_octrees_tpu_torch.models import octree_raytracer
     from ray_tracing_octrees_tpu_torch.render import frustum
+    from ray_tracing_octrees_tpu_torch.models import volume_raycaster
     from ray_tracing_octrees_tpu_torch.trace import fast_exact, sweep_exact
 
     vol = np.zeros((8, 8, 8), np.float32)
@@ -217,10 +218,52 @@ def _entry_points():
             scene="sphere", width=16, height=16, iters=1, dim=8),
         "bench.main": lambda: bench.main(
             ["--scene", "sphere", "--dim", "8", "--out", "record.json"]),
+        "VolumeRaycastRenderer.init": lambda:
+            volume_raycaster.VolumeRaycastRenderer().init(
+                grid.make_sphere_grid(8, device="cpu")),
+        "textures_from_numpy": lambda: convert.textures_from_numpy(
+            _volume_arrays()),
+        "raymarch_volume": lambda: _volume_entry("raymarch_volume"),
+        "raymarch_volume_banded": lambda: _volume_entry(
+            "raymarch_volume_banded"),
+        "prepare_volume_scene": lambda: _volume_entry("prepare_volume_scene"),
+        "render_volume_frame": lambda: _volume_entry("render_volume_frame"),
         **{f"tools.{name}.run": _driver_run(name) for name in (
             "exp_onehot_warp", "exp_warp_ablate", "exp_warp_tune",
             "exp_warp_tune2", "exp_warp_kernel", "exp_warp2pass")},
     }
+
+
+def _volume_arrays():
+    """A tiny renderer's textures as numpy (built on the CPU)."""
+    from ray_tracing_octrees_tpu_torch import convert
+    from ray_tracing_octrees_tpu_torch.core import grid
+    from ray_tracing_octrees_tpu_torch.models import volume_raycaster
+
+    r = volume_raycaster.VolumeRaycastRenderer(device="cpu").init(
+        grid.make_sphere_grid(8, device="cpu"))
+    return convert.textures_to_numpy(r.textures)
+
+
+def _volume_entry(name):
+    """A volume entry point called with no device argument (its inputs
+    built on the CPU first, as a caller would with device="cpu")."""
+    from ray_tracing_octrees_tpu_torch import convert
+    from ray_tracing_octrees_tpu_torch.render import camera
+    from ray_tracing_octrees_tpu_torch.trace import raymarch, raymarch_sweep
+
+    tex = convert.textures_from_numpy(_volume_arrays(), device="cpu")
+    cam = camera.Camera(theta=0.4, phi=0.8, radius=2.0)
+    inv = (np.linalg.inv(cam.get_view()), np.linalg.inv(cam.get_proj(1.0)))
+    if name == "prepare_volume_scene":
+        return raymarch_sweep.prepare_volume_scene(tex, 1 / 8)
+    if name == "render_volume_frame":
+        scene = raymarch_sweep.prepare_volume_scene(tex, 1 / 8, device="cpu")
+        return raymarch_sweep.render_volume_frame(
+            scene, (-0.5, -0.5, -0.5), cam.get_pos(), cam.get_view(), 45.0,
+            1.0, 8, 8)
+    return getattr(raymarch, name)(tex, cam.get_pos(), *inv, 8, 8,
+                                   max_steps=360)
 
 
 def _driver_run(name):
@@ -263,7 +306,13 @@ def test_port_imports_no_jax():
             "ray_tracing_octrees_tpu_torch.models.octree_raytracer, "
             "ray_tracing_octrees_tpu_torch.render.frustum, "
             "ray_tracing_octrees_tpu_torch.trace.sweep_exact, "
-            "ray_tracing_octrees_tpu_torch.trace.mesh_grid; "
+            "ray_tracing_octrees_tpu_torch.trace.mesh_grid, "
+            "ray_tracing_octrees_tpu_torch.ops.sampling, "
+            "ray_tracing_octrees_tpu_torch.ops.precompute, "
+            "ray_tracing_octrees_tpu_torch.ops.carve, "
+            "ray_tracing_octrees_tpu_torch.trace.raymarch, "
+            "ray_tracing_octrees_tpu_torch.trace.raymarch_sweep, "
+            "ray_tracing_octrees_tpu_torch.models.volume_raycaster; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ray_tracing_octrees_tpu' "
             "or m.startswith('ray_tracing_octrees_tpu.')]; "
