@@ -125,9 +125,37 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               packed table and four field channels bitwise equal on the
               same inputs, draw_fast's image within 1e-4 on all but 0.5% of
               pixels, draw's hit masks equal on at least 99%
-  23. lines   the kernels JSON line (each kernel's calls held on the
-              exact tracers' and the volume frame's paths under
-              "held_on_paths"), the nvidia-smi line, and last the
+  23. linear octree  build_linear_octree on the 256^3 sphere (numpy on
+              the host, then to the card): 374921 nodes and 328056 leaves,
+              the JAX package's counts; its time and build_node_id_volume's;
+              find_node_vol equal to find_node on every leaf corner and on
+              2^16 seeded queries, some out of the cube (-1 there)
+  24. extraction  at the bench pose (a 16:9 projection, the config's
+              extraction margin 50), unculled and culled:
+              MarchingCubesRenderer.render (493816 triangles unculled),
+              VoxelBlockRenderer.render (399372), adaptive_dual_contouring
+              through the node-id volume with tree_meta, rows on the card
+              and on the host (228288, the two equal), and
+              dual_contour_uniform on the 64^3 sphere; each one's warm ms
+              (min of 3 runs), triangles/s, peak memory, DC's idle share
+              under torch.profiler; every kernel's count must stay 0
+              (extraction is plain PyTorch)
+  25. extraction card vs CPU  on the 32^3 and 64^3 spheres: the tree and
+              node-id volume, MC and blocks bitwise; adaptive and uniform
+              DC equal counts, vertices within 2e-6 and normals within 2e-4
+              (the CPU tests' bars)
+  26. linear tree  OctreeRayTracer.set_octree(tree=...) and update_frustum
+              at the bench pose (visible_count against a recount of
+              visible_node_mask, children in range or -1), then render at
+              1920x1080 (fast=True at the bench pose, the default route
+              at radius 2.0) with every kernel call held bitwise; the
+              volume renderer's update_frustum_culling(tree=...) (voxels
+              kept beside the 8^3-cell working volume's) and draw_fast at
+              1920x1080 with warp_lookup_multi counted and held
+  27. lines   the kernels JSON line (each kernel's calls held on the
+              exact tracers', the volume frame's and the linear tree's
+              paths under "held_on_paths"; the extraction paths' launches,
+              all 0), the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line
 
 Imports nothing of JAX or of the JAX package. Without a CUDA device, or
@@ -1606,7 +1634,388 @@ def volume_phases(ctx: dict) -> dict:
     if not (tables_equal and over <= VOLUME_SHARE and d_agree >= 0.99):
         raise RuntimeError(f"the volume renderer on the card disagrees with "
                            f"the CPU: {rec['card_vs_cpu']}")
-    return dict(rec, launches=launches, held=held)
+    return dict(rec, launches=launches, held=held, renderer=r)
+
+
+# The JAX package's counts on the 256^3 sphere (its build_linear_octree,
+# count_mc_triangles, count_block_triangles and adaptive_dual_contouring
+# with node_id_vol and tree_meta, on the CPU)
+SPHERE_COUNTS = dict(nodes=374921, leaves=328056, mc=493816, blocks=399372,
+                     adaptive_dc=228288)
+# the CPU tests' bars for DC against a reference: vertices, normals
+DC_TOL = (2e-6, 2e-4)
+N_QUERIES = 1 << 16   # seeded find_node queries (phase 23)
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launch count: the three frame kernels' counters and
+    exp_warp.cu's forms summed."""
+    from ray_tracing_octrees_tpu_torch.trace import exp_warp
+    from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
+
+    return {"warp_frame": wk.warp_frame.launches,
+            "warp_lookup": wk.warp_lookup.launches,
+            "warp_lookup_multi": wk.warp_lookup_multi.launches,
+            "exp_warp": sum(exp_warp.FORM_LAUNCHES.values())}
+
+
+def extraction_phases(ctx: dict) -> dict:
+    """Phases 23-25: the linear octree of the 256^3 sphere (build, node-id
+    volume, both lookups), the three extraction pipelines at the bench
+    pose unculled and culled, with their times, triangles/s, peak memory
+    and DC's idle share, and card against CPU on the 32^3 and 64^3
+    spheres. Extraction is plain PyTorch: every kernel's count must stay
+    0 over phase 24. Returns the record's section, with the tree
+    ("tree") for phase 26."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_octrees_tpu_torch.config import EngineConfig
+    from ray_tracing_octrees_tpu_torch.core.grid import make_sphere_grid
+    from ray_tracing_octrees_tpu_torch.core.octree import (
+        build_linear_octree, build_node_id_volume, find_node_vol,
+    )
+    from ray_tracing_octrees_tpu_torch.models.extraction import (
+        MarchingCubesRenderer, VoxelBlockRenderer,
+    )
+    from ray_tracing_octrees_tpu_torch.ops import blocks
+    from ray_tracing_octrees_tpu_torch.ops import dual_contouring as dc
+    from ray_tracing_octrees_tpu_torch.ops import marching_cubes as mcm
+    from ray_tracing_octrees_tpu_torch.render.frustum import visible_node_mask
+
+    dev, smi, grid = ctx["dev"], ctx["smi"], ctx["grid"]
+    rec = {"card": smi}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # 23. the linear octree
+    torch.cuda.reset_peak_memory_stats()
+    tree, build_s = timed(lambda: build_linear_octree(grid.occ))
+    vol, vol_s = timed(lambda: build_node_id_volume(tree))
+    n_leaves = int(tree.is_leaf.sum())
+    leaf = tree.is_leaf
+    corners = [c[leaf] for c in (tree.x, tree.y, tree.z)]
+    corners_equal = torch.equal(find_node_vol(tree, vol, *corners),
+                                tree.find_node(*corners))
+    S = vol.shape[0]
+    q = torch.as_tensor(np.random.default_rng(453).integers(
+        -16, S + 16, (3, N_QUERIES)), device=dev)
+    by_vol, by_search = find_node_vol(tree, vol, *q), tree.find_node(*q)
+    inside = ((q >= 0) & (q < S)).all(0)
+    queries_equal = torch.equal(by_vol[inside], by_search[inside]) and bool(
+        (by_vol[~inside] == -1).all())
+    rec["linear_octree"] = dict(
+        nodes=tree.num_nodes, leaves=n_leaves, build_s=build_s,
+        node_id_volume_s=vol_s, node_id_volume_shape=list(vol.shape),
+        leaf_corners=int(leaf.sum()), leaf_corners_equal=corners_equal,
+        queries=N_QUERIES, queries_out_of_cube=int((~inside).sum()),
+        queries_equal=queries_equal,
+        peak_bytes=torch.cuda.max_memory_allocated())
+    log("linear octree", f"[{smi}] 256^3 sphere: {tree.num_nodes} nodes, "
+        f"{n_leaves} leaves; build {build_s:.3f} s (numpy on the host, then "
+        f"to the card), node-id volume {tuple(vol.shape)} {vol_s:.3f} s; "
+        f"find_node_vol = find_node on {int(leaf.sum())} leaf corners "
+        f"{corners_equal} and on {N_QUERIES} queries "
+        f"({int((~inside).sum())} out of the cube) {queries_equal}; peak "
+        f"{rec['linear_octree']['peak_bytes'] / 2 ** 30:.2f} GiB")
+    if (tree.num_nodes, n_leaves) != (SPHERE_COUNTS["nodes"],
+                                      SPHERE_COUNTS["leaves"]):
+        raise RuntimeError(f"linear octree: {tree.num_nodes} nodes, "
+                           f"{n_leaves} leaves, not {SPHERE_COUNTS}")
+    if not (corners_equal and queries_equal):
+        raise RuntimeError("find_node_vol disagrees with find_node")
+
+    # 24. extraction at the bench pose, unculled and culled
+    cfg = EngineConfig()
+    margin = cfg.extraction_frustum_margin
+    cam = ctx["bench_camera"]()
+    vp = (cam.get_proj(16 / 9) @ cam.get_view()).astype(np.float32)
+    meta = dc.tree_host_meta(tree)
+    node_mask = visible_node_mask(tree, grid.origin, grid.voxel_size, vp,
+                                  margin)
+    mc = MarchingCubesRenderer(cfg, device=dev)
+    vb = VoxelBlockRenderer(cfg, device=dev)
+    g64 = make_sphere_grid(64, device=dev)
+
+    def adaptive(**kw):
+        return lambda: dc.adaptive_dual_contouring(
+            grid, tree, node_id_vol=vol, tree_meta=meta, device=dev, **kw)
+
+    pipelines = {
+        "mc": lambda: mc.render(grid),
+        "mc culled": lambda: mc.render(grid, vp),
+        "blocks": lambda: vb.render(grid, tree),
+        "blocks culled": lambda: vb.render(grid, tree, vp),
+        "adaptive_dc": adaptive(device_out=True),
+        "adaptive_dc host rows": adaptive(),
+        "adaptive_dc culled": adaptive(device_out=True, node_mask=node_mask),
+        "uniform_dc 64^3": lambda: dc.dual_contour_uniform(
+            g64, 65536, 262144, device=dev),
+    }
+    before = kernel_counts()
+    runs, outs = {}, {}
+    for name, fn in pipelines.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, first_s = timed(fn)
+        peak = torch.cuda.max_memory_allocated() - base
+        wins = []
+        for _ in range(3):
+            _, sec = timed(fn)
+            wins.append(sec * 1e3)
+        n = int(out[2])
+        run = dict(triangles=n, first_ms=first_s * 1e3, ms=min(wins),
+                   ms_windows=wins, triangles_per_s=n / (min(wins) / 1e3),
+                   peak_bytes=peak)
+        if "dc" in name:
+            wall, per = profiled(fn, 1)
+            busy = sum(per.values())
+            run.update(profiled_wall_ms=wall,
+                       device_busy_ms=busy if per else None,
+                       idle_share=1.0 - busy / wall if per else None)
+        runs[name], outs[name] = run, out
+        log("extraction", f"[{smi}] {name}: {n} triangles, {min(wins):.2f} ms "
+            f"warm (windows {', '.join(f'{w:.2f}' for w in wins)}; first "
+            f"{first_s * 1e3:.1f}), {run['triangles_per_s'] / 1e6:.2f} M "
+            f"triangles/s, peak {peak / 2 ** 30:.3f} GiB above the "
+            f"resident {base / 2 ** 30:.2f}"
+            + (f", idle share {run['idle_share']}" if "dc" in name else ""))
+    after = kernel_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    rec["extraction"] = dict(pose="bench (theta 0.9, phi 0.8, radius 0.75 x "
+                             "extent), 16:9 projection", margin=margin,
+                             visible_nodes=int(node_mask.sum()),
+                             runs=runs, kernel_launches=launched)
+    host, devo = outs["adaptive_dc host rows"], outs["adaptive_dc"]
+    same_rows = torch.equal(devo[0].cpu(), host[0]) and torch.equal(
+        devo[1].cpu(), host[1])
+    for name, want in (("mc", "mc"), ("blocks", "blocks"),
+                       ("adaptive_dc", "adaptive_dc"),
+                       ("adaptive_dc host rows", "adaptive_dc")):
+        if runs[name]["triangles"] != SPHERE_COUNTS[want]:
+            raise RuntimeError(f"{name}: {runs[name]['triangles']} triangles, "
+                               f"the JAX package gives {SPHERE_COUNTS[want]}")
+    for name in ("mc", "blocks", "adaptive_dc"):
+        if runs[f"{name} culled"]["triangles"] > runs[name]["triangles"]:
+            raise RuntimeError(f"{name}: culling added triangles")
+    if not same_rows:
+        raise RuntimeError("adaptive DC's device rows differ from its host "
+                           "rows")
+    if runs["uniform_dc 64^3"]["triangles"] in (0, 262144):
+        raise RuntimeError("uniform DC on the 64^3 sphere: empty or "
+                           "truncated")
+    for o in outs.values():
+        c = int(o[2])
+        if not bool(torch.isfinite(o[0][:c]).all() & torch.isfinite(
+                o[1][:c]).all()):
+            raise RuntimeError("extraction gave non-finite rows")
+    if any(launched.values()):
+        raise RuntimeError(f"extraction launched kernels: {launched}")
+    log("extraction", f"no kernel launched over the {len(pipelines)} "
+        f"pipelines x 5 runs: {launched}; device rows = host rows "
+        f"{same_rows}; {int(node_mask.sum())} of {tree.num_nodes} nodes "
+        f"visible at margin {margin}")
+
+    # 25. the card against the CPU on the 32^3 and 64^3 spheres
+    import dataclasses
+
+    cmp = {}
+    for dim in (32, 64):
+        gc = make_sphere_grid(dim, device="cpu")
+        gg = gc.to(dev)
+        tc, tg = build_linear_octree(gc.occ), build_linear_octree(gg.occ)
+        vc, vg = build_node_id_volume(tc), build_node_id_volume(tg)
+        tree_eq = all(torch.equal(getattr(tg, f.name).cpu(),
+                                  getattr(tc, f.name))
+                      for f in dataclasses.fields(tc)) and torch.equal(
+            vg.cpu(), vc)
+        n_mc = int(mcm.count_mc_triangles(gc))
+        n_bl = int(blocks.count_block_triangles(gc, tc))
+        soups = {
+            "mc": (mcm.marching_cubes_grid(gc, n_mc, device="cpu"),
+                   mcm.marching_cubes_grid(gg, n_mc, device=dev)),
+            "blocks": (blocks.extract_block_faces(gc, tc, n_bl, device="cpu"),
+                       blocks.extract_block_faces(gg, tg, n_bl, device=dev)),
+        }
+        exact = {k: int(a[2]) == int(b[2]) and all(
+            torch.equal(x.cpu(), y) for x, y in zip(b[:2], a[:2]))
+            for k, (a, b) in soups.items()}
+        dcs = {
+            "adaptive_dc": (
+                dc.adaptive_dual_contouring(gc, tc, node_id_vol=vc,
+                                            device="cpu"),
+                dc.adaptive_dual_contouring(gg, tg, node_id_vol=vg,
+                                            device=dev)),
+            "uniform_dc": (dc.dual_contour_uniform(gc, 65536, 262144,
+                                                   device="cpu"),
+                           dc.dual_contour_uniform(gg, 65536, 262144,
+                                                   device=dev)),
+        }
+        close = {}
+        for k, (a, b) in dcs.items():
+            c = int(a[2])
+            dv = float((b[0][:c].cpu() - a[0][:c]).abs().max()) if c else 0.0
+            dn = float((b[1][:c].cpu() - a[1][:c]).abs().max()) if c else 0.0
+            close[k] = dict(count_cpu=c, count_card=int(b[2]), max_vertex=dv,
+                            max_normal=dn, ok=int(b[2]) == c and dv <= DC_TOL[0]
+                            and dn <= DC_TOL[1])
+        cmp[f"{dim}^3"] = dict(tree_bitwise=tree_eq, bitwise=exact,
+                               triangles={"mc": n_mc, "blocks": n_bl},
+                               dc=close)
+        log("extraction card vs CPU", f"{dim}^3 sphere: tree and node-id "
+            f"volume equal {tree_eq}; MC ({n_mc}) and blocks ({n_bl}) "
+            f"bitwise {exact}; DC {close}")
+        if not (tree_eq and all(exact.values())
+                and all(v["ok"] for v in close.values())):
+            raise RuntimeError(f"extraction on the card disagrees with the "
+                               f"CPU on the {dim}^3 sphere: {cmp[f'{dim}^3']}")
+    rec["card_vs_cpu"] = cmp
+    return dict(rec, tree=tree)
+
+
+def linear_tree_phases(ctx: dict) -> dict:
+    """Phase 26: the branches the linear octree opens.
+    OctreeRayTracer.set_octree(tree=...) and update_frustum at the bench
+    pose (visible_count against a recount of visible_node_mask, every
+    child index of visible_tree in range or -1), then render at 1920x1080
+    (fast=True at the bench pose, the default route at radius 2.0) with
+    every kernel call held bitwise; and draw_fast at 1920x1080 after
+    VolumeRaycastRenderer.update_frustum_culling(tree=...), its
+    warp_lookup_multi counted and held. Returns the record's section,
+    with the kernels' launches ("launches") and held calls ("held") by
+    path."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_octrees_tpu_torch.models.octree_raytracer import (
+        OctreeRayTracer,
+    )
+    from ray_tracing_octrees_tpu_torch.render.frustum import visible_node_mask
+    from ray_tracing_octrees_tpu_torch.trace import (
+        fast_exact, slab_sweep, sweep_exact,
+    )
+    from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep as rs
+    from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
+
+    dev, smi, grid, tree = ctx["dev"], ctx["smi"], ctx["grid"], ctx["tree"]
+    aspect = WIDTH / HEIGHT
+    kernels = {"warp_frame": wk.warp_frame, "warp_lookup": wk.warp_lookup,
+               "warp_lookup_multi": wk.warp_lookup_multi}
+    references = {"warp_frame": wk.warp_frame_reference,
+                  "warp_lookup": wk.warp_lookup_reference,
+                  "warp_lookup_multi": wk.warp_lookup_multi_reference}
+    out = {"launches": {}, "held": {}}
+
+    tracer = OctreeRayTracer(device=dev)
+    tracer.set_octree(grid, pyramid=ctx["pyr"], tree=tree)
+    cam = ctx["bench_camera"]()
+    vp = (cam.get_proj(aspect) @ cam.get_view()).astype(np.float32)
+    t = time.perf_counter()
+    tracer.update_frustum(vp)
+    torch.cuda.synchronize()
+    cull_s = time.perf_counter() - t
+    margin = tracer.config.raytrace.frustum_margin
+    vis = visible_node_mask(tree, grid.origin, grid.voxel_size, vp, margin)
+    recount = int(vis[1:].sum()) + 1          # the root is always kept
+    ch = tracer.visible_tree.children
+    n_vis = tracer.visible_count
+    children_ok = bool(((ch == -1) | ((ch >= 0) & (ch < n_vis))).all())
+    out["tracer_tree"] = dict(visible_count=n_vis, recount=recount,
+                              nodes=tree.num_nodes, margin=margin,
+                              children_in_range=children_ok,
+                              update_frustum_s=cull_s)
+    log("linear tree", f"OctreeRayTracer.update_frustum at the bench pose: "
+        f"visible_count {n_vis} of {tree.num_nodes} (recount {recount}, "
+        f"margin {margin}), children in range or -1 {children_ok}, "
+        f"{cull_s * 1e3:.1f} ms")
+    if n_vis != recount or not children_ok:
+        raise RuntimeError(f"the compacted node buffer is wrong: "
+                           f"{out['tracer_tree']}")
+    for label, camera, kw, want in (
+            ("fast=True, bench pose", ctx["bench_camera"], dict(fast=True),
+             "fast"),
+            ("default, radius 2.0", ctx["exact_camera"], {}, "sweep_exact")):
+        calls, restore = held_calls([
+            (slab_sweep, "warp_frame"), (slab_sweep, "warp_lookup"),
+            (sweep_exact, "warp_lookup"), (fast_exact, "warp_lookup_multi")])
+        for fn in kernels.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        try:
+            img = tracer.render(camera(), WIDTH, HEIGHT, aspect,
+                                shadows=True, **kw)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        seconds = time.perf_counter() - t
+        launched = {k: fn.launches for k, fn in kernels.items()}
+        held = {k: hold(v, references[k]) for k, v in calls.items() if v}
+        path = f"OctreeRayTracer with a bound tree, {label} (phase 26)"
+        out["launches"][path] = launched
+        for k, h in held.items():
+            out["held"].setdefault(k, {})[path] = h
+        log("linear tree", f"render {label}: path {tracer.last_path}, "
+            f"{seconds:.2f} s; launches {launched}; held {held}")
+        unkept = [k for k, v in launched.items() if v and k not in held]
+        if (tracer.last_path != want or tuple(img.shape) != (HEIGHT, WIDTH, 4)
+                or not sum(launched.values()) or unkept):
+            raise RuntimeError(f"OctreeRayTracer with a tree, {label}: path "
+                               f"{tracer.last_path}, launches {launched}, "
+                               f"unkept {unkept}")
+        require_held(f"OctreeRayTracer with a tree, {label}", held)
+
+    # the volume renderer's exact working volume, then its frame
+    r = ctx["volume_renderer"]
+    r.update_frustum_culling(cam, aspect)
+    kept_cells = int((r.textures.working > 0).sum())
+    t = time.perf_counter()
+    r.update_frustum_culling(cam, aspect, tree=tree)
+    torch.cuda.synchronize()
+    wv_s = time.perf_counter() - t
+    kept_tree = int((r.textures.working > 0).sum())
+    wk.warp_lookup_multi.launches = 0
+    calls, restore = held_calls([(rs, "warp_lookup_multi")])
+    t = time.perf_counter()
+    try:
+        frame = r.draw_fast(cam, WIDTH, HEIGHT, aspect)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    first_ms = (time.perf_counter() - t) * 1e3
+    launches = wk.warp_lookup_multi.launches
+    held = {"warp_lookup_multi": hold(calls["warp_lookup_multi"],
+                                      wk.warp_lookup_multi_reference)}
+    path = "volume frame after update_frustum_culling(tree=...) (phase 26)"
+    out["launches"][path] = {"warp_lookup_multi": launches}
+    out["held"].setdefault("warp_lookup_multi", {})[path] = \
+        held["warp_lookup_multi"]
+    color = frame["color"]
+    hits = frame["alpha"] >= 0.1
+    n_lit = int((hits & (color[..., :3].amax(-1) > 0)).sum())
+    out["volume"] = dict(voxels_kept_tree=kept_tree,
+                         voxels_kept_8cubed_cells=kept_cells,
+                         solid_voxels=int((grid.occ > 0).sum()),
+                         working_volume_octree_s=wv_s,
+                         frame_ms_with_scene_rebuild=first_ms,
+                         launches=launches, lit=n_lit)
+    log("linear tree", f"VolumeRaycastRenderer.update_frustum_culling(tree="
+        f"...) at the bench pose: {kept_tree} voxels kept (the 8^3-cell "
+        f"working volume keeps {kept_cells} of "
+        f"{out['volume']['solid_voxels']}), {wv_s * 1e3:.1f} ms; draw_fast "
+        f"{WIDTH}x{HEIGHT} {first_ms:.1f} ms with the sweep scene rebuilt; "
+        f"warp_lookup_multi {launches} launches, held {held}; {n_lit} lit")
+    if launches < 1 or not bool(torch.isfinite(color).all()) or not n_lit:
+        raise RuntimeError(f"the volume frame after the exact culling: "
+                           f"{launches} launches, {n_lit} lit pixels")
+    require_held("the volume frame after update_frustum_culling(tree=...)",
+                 held)
+    return out
 
 
 def main() -> int:
@@ -2174,6 +2583,18 @@ def main() -> int:
         "warp_lookup_multi": volume.pop("launches")}
     for k, h in volume.pop("held").items():
         exact["held"].setdefault(k, {})["volume frame (phase 20)"] = h
+    # 23-25. the linear octree and extraction
+    extraction = extraction_phases(dict(dev=dev, smi=smi, grid=grid,
+                                        bench_camera=bench_camera))
+    # 26. the linear tree's branches
+    branches = linear_tree_phases(dict(
+        dev=dev, smi=smi, grid=grid, pyr=pyr, tree=extraction.pop("tree"),
+        bench_camera=bench_camera, exact_camera=exact_camera,
+        volume_renderer=volume.pop("renderer")))
+    for path, counts in branches.pop("launches").items():
+        exact["launches"][path] = counts
+    for k, by in branches.pop("held").items():
+        exact["held"].setdefault(k, {}).update(by)
 
     by_path = {
         "warp_frame": {"fast frame (phase 4)": launches["warp_frame"]},
@@ -2185,8 +2606,11 @@ def main() -> int:
     for path, counts in exact["launches"].items():
         for k, v in counts.items():
             by_path[k][path] = v
+    for k, v in extraction["extraction"]["kernel_launches"].items():
+        if k in by_path:
+            by_path[k]["extraction pipelines (phase 24)"] = v
 
-    # 23. lines
+    # 27. lines
     held = exact["held"]
     record = {"kernels": [{
         "name": "warp_frame",
@@ -2279,6 +2703,9 @@ def main() -> int:
         "exact_tracers": {k: v for k, v in exact.items()
                           if k not in ("launches", "held")},
         "volume": volume,
+        "extraction": dict(extraction, launches_on_extraction_paths=extraction[
+            "extraction"]["kernel_launches"]),
+        "linear_tree_branches": branches,
         "card": smi}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

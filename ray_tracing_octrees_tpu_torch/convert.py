@@ -2,9 +2,10 @@
 
 This system has no weights: what crosses between the JAX reference and
 the port is the scene, an occupancy grid with its world placement, and
-the structures built from it, such as the occupancy pyramid and the
-volume renderer's textures (after carving or indirect light, its whole
-state). These helpers move them through numpy, which both packages read.
+the structures built from it, such as the occupancy pyramid, the linear
+octree and the volume renderer's textures (after carving or indirect
+light, its whole state). These helpers move them through numpy, which
+both packages read.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import torch
 
 from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
 from ray_tracing_octrees_tpu_torch.core.grid import VoxelGrid
-from ray_tracing_octrees_tpu_torch.core.octree import OccupancyPyramid
+from ray_tracing_octrees_tpu_torch.core.octree import (
+    LinearOctree, OccupancyPyramid,
+)
 from ray_tracing_octrees_tpu_torch.trace.raymarch import VolumeTextures
 
 
@@ -52,13 +55,38 @@ def pyramid_to_numpy(pyramid: OccupancyPyramid):
     return [c.cpu().numpy().astype(np.uint8) for c in pyramid.code_levels]
 
 
+def _getter(src):
+    """Field access on a mapping of names to arrays, or on any object with
+    those attributes."""
+    return src.__getitem__ if isinstance(src, Mapping) else \
+        lambda k: getattr(src, k)
+
+
+def linear_octree_from_numpy(src, device: DeviceLike = None) -> LinearOctree:
+    """LinearOctree on ``device`` from ``src``: a mapping of its field
+    names to arrays, or any object with those attributes, such as the JAX
+    package's ``LinearOctree``. Integer fields become int32, the flags
+    bool."""
+    dev = resolve_device(device)
+    get = _getter(src)
+    as_t = lambda name: torch.as_tensor(np.array(
+        get(name), bool if name.startswith("is_") else np.int32), device=dev)
+    return LinearOctree(**{f.name: as_t(f.name)
+                           for f in dataclasses.fields(LinearOctree)})
+
+
+def linear_octree_to_numpy(tree: LinearOctree) -> dict:
+    """The fields of ``tree`` as numpy arrays, by name."""
+    return {f.name: getattr(tree, f.name).cpu().numpy()
+            for f in dataclasses.fields(LinearOctree)}
+
+
 def textures_from_numpy(src, device: DeviceLike = None) -> VolumeTextures:
     """VolumeTextures on ``device`` from ``src``: a mapping of its field
     names to arrays (``vol_mips`` a list of them), or any object with
     those attributes, such as the JAX package's ``VolumeTextures``."""
     dev = resolve_device(device)
-    get = src.__getitem__ if isinstance(src, Mapping) else \
-        lambda k: getattr(src, k)
+    get = _getter(src)
     as_t = lambda a: torch.as_tensor(np.array(a, np.float32), device=dev)
     return VolumeTextures(**{
         f.name: [as_t(m) for m in get(f.name)] if f.name == "vol_mips"

@@ -52,6 +52,14 @@ class VoxelGrid:
     def dims_xyz(self) -> Tuple[int, int, int]:
         return (self.dim_x, self.dim_y, self.dim_z)
 
+    def to(self, device) -> "VoxelGrid":
+        return VoxelGrid(self.occ.to(device), self.origin.to(device),
+                         self.voxel_size.to(device))
+
+    @property
+    def num_voxels(self) -> int:
+        return int(np.prod(self.occ.shape))
+
     @property
     def world_min(self) -> torch.Tensor:
         return self.origin
@@ -61,6 +69,38 @@ class VoxelGrid:
         dims = torch.tensor([self.dim_x, self.dim_y, self.dim_z],
                             dtype=torch.float32, device=self.device)
         return self.origin + dims * self.voxel_size
+
+    def at_xyz(self, x, y, z) -> torch.Tensor:
+        """Occupancy at integer voxel coords (no bounds checking)."""
+        return self.occ[z, y, x]
+
+    def scalar_field_safe(self, x, y, z) -> torch.Tensor:
+        """-1.0 where FILLED, +1.0 where EMPTY or out of range: the sign
+        convention of ``localMC``'s getScalar (OctreeVoxel.cpp:787-792) and
+        DC's calculateIntersection (AdaptiveDualContouringRenderer.cpp:1253).
+        """
+        return torch.where(self.sample_safe(x, y, z) > 0, -1.0, 1.0).to(
+            torch.float32)
+
+    def grid_to_world(self, x, y, z) -> torch.Tensor:
+        """World position f32[..., 3] of the voxel-corner lattice point
+        (x, y, z): origin + index * voxelSize, as ``gridToWorld``
+        (AdaptiveDualContouringRenderer.cpp:1358-1364)."""
+        return self._world(x, y, z, 0.0)
+
+    def voxel_center(self, x, y, z) -> torch.Tensor:
+        """World position f32[..., 3] of voxel (x, y, z)'s centre."""
+        return self._world(x, y, z, 0.5)
+
+    def _world(self, x, y, z, shift: float) -> torch.Tensor:
+        """origin + (index + shift) * voxelSize per axis, rounded once as
+        a multiply-add, as in the reference package's compiled extraction
+        (through f64: the same bits on every device)."""
+        v = self.voxel_size.double()
+        f = lambda c: torch.as_tensor(c, device=self.device).to(
+            torch.float32) + shift
+        return torch.stack([(f(c).double() * v + self.origin[a]).float()
+                            for a, c in enumerate((x, y, z))], dim=-1)
 
     def sample_safe(self, x, y, z) -> torch.Tensor:
         """Occupancy with out-of-range treated as EMPTY.
@@ -111,9 +151,11 @@ def generate_test_volume(dim_x: int, dim_y: int, dim_z: int,
     x = torch.arange(dim_x, dtype=f32, device=dev) - float(cx)
     y = torch.arange(dim_y, dtype=f32, device=dev) - float(cy)
     z = torch.arange(dim_z, dtype=f32, device=dev) - float(cz)
-    dist = torch.sqrt(
+    # the correctly rounded f32 root on every device (through f64): the
+    # CPU's vectorized f32 torch.sqrt is an ulp off on some inputs
+    dist = torch.sqrt((
         (x * x)[None, None, :] + (y * y)[None, :, None] + (z * z)[:, None, None]
-    )
+    ).double()).to(f32)
     outside = (dist < r_inner) | (dist > r_outer)
     return torch.where(outside, -1.0, 1.0).to(f32)
 

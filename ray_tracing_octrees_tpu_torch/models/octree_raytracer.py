@@ -9,8 +9,6 @@ the stackless hierarchical DDA of ``trace/octree_trace.py`` rather than a
 per-thread stack; :class:`OctreeRayTracer` routes a frame to the fastest
 exact tracer whose envelope holds the pose (fast-exact when configured,
 then sweep-exact, then the DDA), or to the slab-sweep fast frame.
-
-The linear (node buffer) octree is not ported yet: binding one raises.
 """
 
 from __future__ import annotations
@@ -25,19 +23,16 @@ import torch
 from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
 from ray_tracing_octrees_tpu_torch.config import DEFAULT_CONFIG, EngineConfig
 from ray_tracing_octrees_tpu_torch.core.octree import (
-    OccupancyPyramid, build_leaf_volume, build_pyramid,
+    LinearOctree, OccupancyPyramid, build_leaf_volume, build_pyramid,
 )
 from ray_tracing_octrees_tpu_torch.render.camera import Camera, generate_rays
+from ray_tracing_octrees_tpu_torch.render.frustum import visible_node_mask
 from ray_tracing_octrees_tpu_torch.trace import fast_exact, slab_sweep
 from ray_tracing_octrees_tpu_torch.trace import sweep_exact
 from ray_tracing_octrees_tpu_torch.trace.octree_trace import (
-    cull_pyramid, trace_octree, trace_octree_fast,
+    compact_visible_nodes, cull_pyramid, trace_octree, trace_octree_fast,
 )
 from ray_tracing_octrees_tpu_torch.trace.slab_sweep import _host, _unit
-
-LINEAR_TREE_MISSING = (
-    "the linear octree (set_octree(tree=...)) is not ported yet: "
-    "ROADMAP.md queue 1, item 4 (surface extraction)")
 
 
 def lambert_shade(normal, hit, light_dir, base_color, ambient):
@@ -209,15 +204,21 @@ class OctreeRayTracer:
     grid_origin: Optional[np.ndarray] = None
     voxel_size: Optional[float] = None
     last_path: Optional[str] = None
+    linear_tree: Optional[LinearOctree] = None
+    visible_tree: Optional[LinearOctree] = None
+    visible_count: Optional[int] = None
 
     def set_octree(self, grid, pyramid: Optional[OccupancyPyramid] = None,
-                   tree=None):
+                   tree: Optional[LinearOctree] = None):
         """setOctree (RayTracerBVH.cpp:430-505): bind the scene (a
-        ``core/grid.VoxelGrid``). ``tree``, the flat node buffer, needs
-        the linear octree, which is not ported: passing one raises."""
-        if tree is not None:
-            raise NotImplementedError(LINEAR_TREE_MISSING)
+        ``core/grid.VoxelGrid``). ``tree`` is the flat node buffer (the
+        GPUNodes SSBO's mirror, moved to the tracer's device); with it,
+        ``update_frustum`` keeps its frustum-compacted copy as
+        updateNodesWithFrustumCulling does."""
         self._dev = resolve_device(self.device)
+        self.linear_tree = None if tree is None else tree.to(self._dev)
+        self.visible_tree = None
+        self.visible_count = None
         self.pyramid = pyramid if pyramid is not None else build_pyramid(
             grid.occ.to(self._dev))
         self.culled_pyramid = None
@@ -321,11 +322,20 @@ class OctreeRayTracer:
     def update_frustum(self, view_proj):
         """The culling step of renderSceneComputeWithCulling
         (RayTracerBVH.cpp:743-812): blank occupancy outside the frustum,
-        which the DDA trace then skips. The node-buffer compaction needs
-        the linear octree, which :meth:`set_octree` refuses."""
+        which the DDA trace then skips, and, when the node buffer is
+        bound, compact it with child remap as the SSBO re-upload does
+        (``visible_tree``, ``visible_count``)."""
+        margin = self.config.raytrace.frustum_margin
         self.culled_pyramid = cull_pyramid(
             self.pyramid, self.grid_origin, self.voxel_size, view_proj,
-            self.config.raytrace.frustum_margin)
+            margin)
+        if self.linear_tree is not None:
+            vis = visible_node_mask(self.linear_tree, self.grid_origin,
+                                    self.voxel_size,
+                                    np.asarray(view_proj, np.float32), margin)
+            self.visible_tree, count = compact_visible_nodes(
+                self.linear_tree, vis)
+            self.visible_count = int(count)
 
     def render(self, camera: Camera, width: int, height: int, aspect: float,
                use_culling: bool = False, shadows: bool = False,

@@ -4,8 +4,10 @@ Counterpart of ``ray_tracing_octrees_tpu/render/frustum.py`` (the array
 port of ``Frustum``, Frustum.cpp:5-93): Gribb-Hartmann planes from the
 combined view-projection matrix and the p/n-vertex AABB test returning
 -1 (outside), 0 (intersecting) or 1 (inside), with the reference's
-inflate margin. ``classify_nodes`` and ``visible_node_mask`` need the
-linear octree, which is not ported yet.
+inflate margin. ``classify_nodes`` applies the test to the whole
+linear-octree node array at once, in place of the reference's three
+per-renderer CPU culling loops (main.cpp:154-189, RayTracerBVH.cpp:
+743-762, VolumeRaycastRenderer.cpp:1367-1481).
 """
 
 from __future__ import annotations
@@ -51,6 +53,22 @@ def test_aabb(planes: torch.Tensor, box_min, box_max,
     intersecting = (n_dist < 0).any(-1)
     return torch.where(outside, -1, torch.where(intersecting, 0, 1)).to(
         torch.int32)
+
+
+def classify_nodes(tree, grid_origin, voxel_size, view_proj,
+                   margin) -> torch.Tensor:
+    """Frustum result per octree node (int32[N] in {-1, 0, 1}), on the
+    tree's device."""
+    planes = frustum_planes(view_proj, tree.device)
+    lo, hi = tree.world_bounds(grid_origin, voxel_size)
+    return test_aabb(planes, lo, hi, float(margin))
+
+
+def visible_node_mask(tree, grid_origin, voxel_size, view_proj,
+                      margin) -> torch.Tensor:
+    """Visibility (not fully outside) per node, bool[N]."""
+    return classify_nodes(tree, grid_origin, voxel_size, view_proj,
+                          margin) >= 0
 
 
 def visible_cell_mask(dims_zyx, grid_origin, voxel_size, view_proj, margin,

@@ -2,8 +2,8 @@
 
 Counterpart of ``ray_tracing_octrees_tpu/trace/octree_trace.py``:
 ``trace_octree`` (with ``_safe_inv``, ``_degenerate_axes`` and ``_slab``),
-its one-lookup form ``trace_octree_fast`` and ``cull_pyramid``; the node
-buffer's ``compact_visible_nodes`` waits for the linear octree.
+its one-lookup form ``trace_octree_fast``, ``cull_pyramid`` and the node
+buffer's ``compact_visible_nodes``.
 The reference's per-pixel stack traversal (``intersectOctreeIterative``,
 RayTracerBVH.cpp:239-327) becomes hierarchical DDA with restart: every
 ray repeatedly finds the octree leaf containing its current point by
@@ -15,11 +15,14 @@ by construction, so it returns the true nearest hit.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ray_tracing_octrees_tpu_torch.core.octree import (
-    OccupancyPyramid, build_pyramid, decode_skip_radius,
+    LinearOctree, OccupancyPyramid, build_pyramid, decode_skip_radius,
 )
+from ray_tracing_octrees_tpu_torch.ops.compaction import scatter_drop
 from ray_tracing_octrees_tpu_torch.render.frustum import frustum_planes
 
 _BIG = 1e30
@@ -391,3 +394,31 @@ def cull_pyramid(pyramid: OccupancyPyramid, grid_origin, voxel_size,
         infl = margin * (a.abs() + b.abs() + c.abs())
         visible &= dist >= -infl
     return build_pyramid(occ & visible)
+
+
+def compact_visible_nodes(tree: LinearOctree, visible: torch.Tensor):
+    """Node-buffer compaction with child remap (RayTracerBVH.cpp:765-813).
+
+    ``visible``: bool[N]. Returns (tree2, new_count): tree2 has the
+    visible nodes moved to the front in their original order, children
+    of culled nodes set to -1 and the trailing slots zero (children -1),
+    at the static size N; the root is always kept. ``new_count`` is an
+    int32 0-d tensor on the tree's device.
+    """
+    n = tree.num_nodes
+    vis = visible.to(tree.device).clone()
+    vis[0] = True          # root always kept (the reference keeps index 0)
+    new_idx = torch.cumsum(vis.to(torch.int32), 0, dtype=torch.int32) - 1
+    slots = torch.where(vis, new_idx, n)
+    scatter = lambda a, fill=0: scatter_drop(n, slots, a, fill)
+
+    # child remap: old child -> its new index if visible, else -1
+    child = tree.children.long().clamp(0, n - 1)
+    child_ok = (tree.children >= 0) & vis[child]
+    remapped = torch.where(child_ok, new_idx[child], -1)
+    tree2 = dataclasses.replace(
+        tree, x=scatter(tree.x), y=scatter(tree.y), z=scatter(tree.z),
+        size=scatter(tree.size), is_leaf=scatter(tree.is_leaf),
+        is_solid=scatter(tree.is_solid), is_uniform=scatter(tree.is_uniform),
+        children=scatter(remapped, fill=-1), level=scatter(tree.level))
+    return tree2, vis.sum(dtype=torch.int32)

@@ -5,7 +5,9 @@ form, ``warp_lookup`` in both forms and ``warp_lookup_multi``
 (csrc/exp_warp.cu), in every form, through every wrapper of
 ``ray_tracing_octrees_tpu_torch/tools``; and the exact tracers on the
 card against the CPU (the DDA, the sweep-exact frame and its dead test
-through ``warp_lookup``, ``OctreeRayTracer``'s four routes).
+through ``warp_lookup``, ``OctreeRayTracer``'s four routes); and the
+linear octree, the extraction pipelines (plain PyTorch) and the linear
+tree's branches on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (a
 CUDA kernel has no CPU mode). The file imports nothing of JAX, so it also
@@ -634,3 +636,139 @@ def test_volume_oracle_card_vs_cpu(volume_pair):
     hits = [out[d]["alpha"].cpu() >= 0.1 for d in ("cpu", "cuda")]
     assert float((hits[0] == hits[1]).float().mean()) >= 0.99
     assert out["cuda"]["iters"] == out["cpu"]["iters"]
+
+
+# -- the linear octree and extraction: plain PyTorch, card against CPU ----
+
+@pytest.fixture(scope="module")
+def extraction_pair():
+    """The 32^3 sphere and its linear octree on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ray_tracing_octrees_tpu_torch.core.octree import build_linear_octree
+
+    torch.set_num_threads(2)
+    g = make_sphere_grid(32, device="cpu")
+    return {dev: (g.to(dev), build_linear_octree(g.occ.to(dev)))
+            for dev in ("cpu", "cuda")}
+
+
+def test_linear_octree_card_vs_cpu(extraction_pair):
+    """The build, the node-id volume and both lookups: equal on the card
+    and the CPU."""
+    import dataclasses
+
+    from ray_tracing_octrees_tpu_torch.core.octree import (
+        build_node_id_volume, find_node_vol,
+    )
+
+    (_, tc), (_, tg) = extraction_pair["cpu"], extraction_pair["cuda"]
+    assert tg.device.type == "cuda"
+    for f in dataclasses.fields(tc):
+        assert torch.equal(getattr(tg, f.name).cpu(), getattr(tc, f.name))
+    vc, vg = build_node_id_volume(tc), build_node_id_volume(tg)
+    assert torch.equal(vg.cpu(), vc)
+    q = torch.tensor(np.random.default_rng(453).integers(-4, 36, (3, 5000)))
+    assert torch.equal(find_node_vol(tg, vg, *q.cuda()).cpu(),
+                       find_node_vol(tc, vc, *q))
+    assert torch.equal(tg.find_node(*q.cuda()).cpu(), tc.find_node(*q))
+
+
+def test_mc_and_blocks_card_vs_cpu(extraction_pair):
+    """MarchingCubesRenderer and VoxelBlockRenderer, unculled and culled:
+    bitwise equal on the card and the CPU."""
+    from ray_tracing_octrees_tpu_torch.config import EngineConfig
+    from ray_tracing_octrees_tpu_torch.models.extraction import (
+        MarchingCubesRenderer, VoxelBlockRenderer,
+    )
+
+    cfg = EngineConfig().replace(extraction_frustum_margin=0.05,
+                                 max_triangles=20000)
+    cam = Camera(theta=0.9, phi=0.8, radius=0.6)
+    vp = (cam.get_proj(16 / 9) @ cam.get_view()).astype(np.float32)
+    outs = {}
+    for dev, (g, tree) in extraction_pair.items():
+        mc = MarchingCubesRenderer(cfg, device=dev)
+        vb = VoxelBlockRenderer(cfg, device=dev)
+        outs[dev] = [mc.render(g), mc.render(g, vp), vb.render(g, tree),
+                     vb.render(g, tree, vp)]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        for x, y in zip(a, b):
+            assert torch.equal(x.cpu(), y)
+
+
+def test_dual_contouring_card_vs_cpu(extraction_pair):
+    """Adaptive DC (through the node-id volume, device rows) and uniform
+    DC on the card: the CPU's counts, vertices and normals within the CPU
+    tests' bars (2e-6, 2e-4)."""
+    from ray_tracing_octrees_tpu_torch.core.octree import build_node_id_volume
+    from ray_tracing_octrees_tpu_torch.ops import dual_contouring as dc
+
+    outs = {}
+    for dev, (g, tree) in extraction_pair.items():
+        outs[dev] = [
+            dc.adaptive_dual_contouring(
+                g, tree, node_id_vol=build_node_id_volume(tree),
+                tree_meta=dc.tree_host_meta(tree), device_out=True,
+                device=dev),
+            dc.dual_contour_uniform(g, 8192, 40000, device=dev)]
+    for (gv, gn, gc), (cv, cn, cc) in zip(outs["cuda"], outs["cpu"]):
+        assert int(gc) == int(cc) > 100
+        c = int(cc)
+        assert float((gv[:c].cpu() - cv[:c]).abs().max()) <= 2e-6
+        assert float((gn[:c].cpu() - cn[:c]).abs().max()) <= 2e-4
+
+
+def test_linear_tree_branches_on_card(extraction_pair):
+    """OctreeRayTracer with a bound tree (update_frustum's compaction
+    equal to the CPU's) and draw_fast after update_frustum_culling(tree=
+    ...), its warp_lookup_multi launched and bitwise against its plain
+    version."""
+    import dataclasses
+
+    from ray_tracing_octrees_tpu_torch.models.octree_raytracer import (
+        OctreeRayTracer,
+    )
+    from ray_tracing_octrees_tpu_torch.models.volume_raycaster import (
+        VolumeRaycastRenderer,
+    )
+    from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep
+
+    cam = Camera(theta=0.4, phi=1.1, radius=0.5)
+    vp = (cam.get_proj(1.3) @ cam.get_view()).astype(np.float32)
+    tracers = {}
+    for dev, (g, tree) in extraction_pair.items():
+        rt = OctreeRayTracer(device=dev)
+        rt.set_octree(g, tree=tree)
+        rt.update_frustum(vp)
+        tracers[dev] = rt
+    assert tracers["cuda"].visible_count == tracers["cpu"].visible_count
+    for f in dataclasses.fields(tracers["cpu"].visible_tree):
+        assert torch.equal(getattr(tracers["cuda"].visible_tree,
+                                   f.name).cpu(),
+                           getattr(tracers["cpu"].visible_tree, f.name))
+    g, tree = extraction_pair["cuda"]
+    r = VolumeRaycastRenderer(device="cuda").init(g)
+    r.update_frustum_culling(cam, 1.3, tree=tree)
+    cpu_g, cpu_tree = extraction_pair["cpu"]
+    rc = VolumeRaycastRenderer(device="cpu").init(cpu_g)
+    rc.update_frustum_culling(cam, 1.3, tree=cpu_tree)
+    assert torch.equal(r.textures.working.cpu(), rc.textures.working)
+    kept, real = [], raymarch_sweep.warp_lookup_multi
+
+    def keep(tables, lin):
+        out = real(tables, lin)
+        kept.append((tables, lin, out.clone()))
+        return out
+
+    raymarch_sweep.warp_lookup_multi = keep
+    try:
+        before = warp_kernel.warp_lookup_multi.launches
+        r.draw_fast(Camera(theta=0.5, phi=0.8, radius=2.2), 160, 120,
+                    160 / 120)
+        assert warp_kernel.warp_lookup_multi.launches == before + 1
+    finally:
+        raymarch_sweep.warp_lookup_multi = real
+    (tables, lin, out), = kept
+    assert torch.equal(out, warp_kernel.warp_lookup_multi_reference(tables,
+                                                                    lin))

@@ -379,11 +379,41 @@ def test_render_image_bands_identical(sphere):
     assert torch.equal(a, b)
 
 
-def test_set_octree_refuses_a_linear_tree():
-    rt = tm.OctreeRayTracer(device="cpu")
-    g = make_sphere_grid(8, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        rt.set_octree(g, tree=object())
+def test_set_octree_binds_a_linear_tree():
+    """set_octree(tree=...) then update_frustum give JAX's visible_count
+    and visible_tree bitwise (at a margin that culls the 32^3 sphere's
+    tree; the config's 150 keeps every node), every child index of
+    visible_tree in range or -1, the count a recount of
+    visible_node_mask with the root kept."""
+    jg = j_sphere(32)
+    jtree = jo.build_linear_octree(jg.occ)
+    jcfg, tcfg = JEngineConfig(), EngineConfig()
+    jcfg = dataclasses.replace(jcfg, raytrace=dataclasses.replace(
+        jcfg.raytrace, frustum_margin=0.05))
+    tcfg = dataclasses.replace(tcfg, raytrace=dataclasses.replace(
+        tcfg.raytrace, frustum_margin=0.05))
+    jr = jm.OctreeRayTracer(config=jcfg)
+    jr.set_octree(jg, tree=jtree)
+    rt = tm.OctreeRayTracer(config=tcfg, device="cpu")
+    rt.set_octree(make_sphere_grid(32, device="cpu"),
+                  tree=to.build_linear_octree(np.asarray(jg.occ),
+                                              device="cpu"))
+    assert rt.visible_tree is None and rt.visible_count is None
+    cam = Camera(theta=0.4, phi=1.1, radius=0.5)
+    cam.set_target(np.array([0.3, 0.1, 0.2], np.float32))
+    vp = (cam.get_proj(1.3) @ cam.get_view()).astype(np.float32)
+    jr.update_frustum(jnp.asarray(vp))
+    rt.update_frustum(vp)
+    assert rt.visible_count == jr.visible_count < jtree.num_nodes
+    for f in dataclasses.fields(rt.visible_tree):
+        np.testing.assert_array_equal(
+            getattr(rt.visible_tree, f.name).numpy(),
+            np.asarray(getattr(jr.visible_tree, f.name)), err_msg=f.name)
+    ch = rt.visible_tree.children
+    assert bool(((ch == -1) | ((ch >= 0) & (ch < rt.visible_count))).all())
+    vis = tf.visible_node_mask(rt.linear_tree, rt.grid_origin,
+                                rt.voxel_size, vp, 0.05)
+    assert rt.visible_count == int(vis[1:].sum()) + 1
 
 
 # ---------------------------------------------------------------------------

@@ -228,9 +228,44 @@ def _entry_points():
             "raymarch_volume_banded"),
         "prepare_volume_scene": lambda: _volume_entry("prepare_volume_scene"),
         "render_volume_frame": lambda: _volume_entry("render_volume_frame"),
+        **_extraction_entry_points(),
         **{f"tools.{name}.run": _driver_run(name) for name in (
             "exp_onehot_warp", "exp_warp_ablate", "exp_warp_tune",
             "exp_warp_tune2", "exp_warp_kernel", "exp_warp2pass")},
+    }
+
+
+def _extraction_entry_points():
+    """The linear octree's and the extraction's entry points, each called
+    with no device argument on inputs built on the CPU."""
+    from ray_tracing_octrees_tpu_torch import convert
+    from ray_tracing_octrees_tpu_torch.core import grid, octree
+    from ray_tracing_octrees_tpu_torch.models import extraction
+    from ray_tracing_octrees_tpu_torch.ops import blocks, dual_contouring
+    from ray_tracing_octrees_tpu_torch.ops import marching_cubes
+
+    occ = np.zeros((8, 8, 8), np.uint8)
+    occ[2:6, 3:6, 2:5] = 1
+    g = lambda: grid.VoxelGrid.create(occ, device="cpu")
+    tree = lambda: octree.build_linear_octree(occ, device="cpu")
+    return {
+        "build_linear_octree": lambda: octree.build_linear_octree(occ),
+        "linear_octree_from_numpy": lambda: convert.linear_octree_from_numpy(
+            convert.linear_octree_to_numpy(tree())),
+        "marching_cubes_grid": lambda: marching_cubes.marching_cubes_grid(
+            g(), 64),
+        "marching_cubes_volume": lambda: marching_cubes.marching_cubes_volume(
+            occ.astype(np.float32), (0, 0, 0), 1.0, 0.5, 64),
+        "extract_block_faces": lambda: blocks.extract_block_faces(
+            g(), tree(), 64),
+        "MarchingCubesRenderer.render": lambda:
+            extraction.MarchingCubesRenderer().render(g()),
+        "VoxelBlockRenderer.render": lambda:
+            extraction.VoxelBlockRenderer().render(g(), tree()),
+        "dual_contour_uniform": lambda: dual_contouring.dual_contour_uniform(
+            g(), 64, 256),
+        "adaptive_dual_contouring": lambda:
+            dual_contouring.adaptive_dual_contouring(g(), tree()),
     }
 
 
@@ -312,7 +347,15 @@ def test_port_imports_no_jax():
             "ray_tracing_octrees_tpu_torch.ops.carve, "
             "ray_tracing_octrees_tpu_torch.trace.raymarch, "
             "ray_tracing_octrees_tpu_torch.trace.raymarch_sweep, "
-            "ray_tracing_octrees_tpu_torch.models.volume_raycaster; "
+            "ray_tracing_octrees_tpu_torch.models.volume_raycaster, "
+            "ray_tracing_octrees_tpu_torch.core.octree, "
+            "ray_tracing_octrees_tpu_torch.ops.mc_tables, "
+            "ray_tracing_octrees_tpu_torch.ops.compaction, "
+            "ray_tracing_octrees_tpu_torch.ops.marching_cubes, "
+            "ray_tracing_octrees_tpu_torch.ops.blocks, "
+            "ray_tracing_octrees_tpu_torch.ops.qef, "
+            "ray_tracing_octrees_tpu_torch.ops.dual_contouring, "
+            "ray_tracing_octrees_tpu_torch.models.extraction; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ray_tracing_octrees_tpu' "
             "or m.startswith('ray_tracing_octrees_tpu.')]; "

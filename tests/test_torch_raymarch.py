@@ -179,14 +179,63 @@ def test_update_octree_skip_matches_jax(scene):
         assert abs(r.octree_skip_t - jr.octree_skip_t) <= 1e-5
 
 
-def test_working_volume_octree_raises_until_item_4():
-    """Stands in for test_octree_exact_working_volume_matches_oracle
-    until the linear octree is ported."""
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tvr._working_volume_octree(None, None, None, None, None, None)
-    r = tvr.VolumeRaycastRenderer(device="cpu").init(_small_box_grid())
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        r.update_frustum_culling(Camera(), 1.0, tree=object())
+@pytest.mark.parametrize("radius", [2.0, 0.6])
+def test_octree_exact_working_volume_matches_oracle(radius):
+    """The port's _working_volume_octree keeps the voxels under visible
+    SOLID leaves (markVisibleNodesOnly + updateWorkingVolumeWithVisibility),
+    checked against a per-node numpy box fill (the JAX test's oracle), at
+    the JAX test's pose (everything visible) and nearer (part culled)."""
+    from ray_tracing_octrees_tpu_torch.core.octree import build_linear_octree
+    from ray_tracing_octrees_tpu_torch.render.frustum import visible_node_mask
+
+    g = make_sphere_grid(32, device="cpu")
+    tree = build_linear_octree(g.occ)
+    cam = Camera(theta=0.5, phi=0.8, radius=radius)
+    vp = (cam.get_proj(1.0) @ cam.get_view()).astype(np.float32)
+    out = tvr._working_volume_octree(g.occ, tree, g.origin, g.voxel_size,
+                                     vp, 0.05).numpy()
+    vis = visible_node_mask(tree, g.origin, g.voxel_size, vp, 0.05)
+    keep = (vis & tree.is_leaf & tree.is_solid).numpy()
+    x, y, z, sz = (t.numpy() for t in (tree.x, tree.y, tree.z, tree.size))
+    occ = g.occ.numpy()
+    ref_mask = np.zeros(occ.shape, bool)
+    for i in np.nonzero(keep)[0]:
+        ref_mask[z[i]:z[i] + sz[i], y[i]:y[i] + sz[i], x[i]:x[i] + sz[i]] = True
+    np.testing.assert_array_equal(
+        out, np.where(ref_mask, (occ > 0).astype(np.float32), 0.0))
+    assert 0 < out.sum() <= (occ > 0).sum()
+    assert (out.sum() < (occ > 0).sum()) == (radius < 1)
+
+
+@pytest.mark.parametrize("pose", [dict(theta=0.5, phi=0.8, radius=2.0),
+                                  dict(theta=0.5, phi=0.8, radius=0.6),
+                                  dict(theta=-0.3, phi=2.6, radius=0.4)])
+def test_working_volume_octree_matches_jax(scene, pose):
+    """_working_volume_octree bitwise against JAX's, and
+    update_frustum_culling(tree=...) on both renderers (margin 20: every
+    node of the 32^3 sphere stays, so the pose's own test is the margin
+    0.05 one)."""
+    from ray_tracing_octrees_tpu.core.octree import build_linear_octree as jb
+
+    g, jr, _ = scene
+    jtree = jb(g.occ)
+    ttree = convert.linear_octree_from_numpy(jtree, device="cpu")
+    cam = Camera(**pose)
+    vp = (cam.get_proj(1.0) @ cam.get_view()).astype(np.float32)
+    occ = torch.tensor(np.asarray(g.occ))
+    want = np.asarray(jvr._working_volume_octree(
+        g.occ, jtree, g.origin, g.voxel_size, jnp.asarray(vp),
+        jnp.float32(0.05)))
+    got = tvr._working_volume_octree(occ, ttree, np.asarray(g.origin),
+                                     np.asarray(g.voxel_size), vp, 0.05)
+    np.testing.assert_array_equal(got.numpy(), want)
+    jr = dataclasses.replace(jr)
+    jr.update_frustum_culling(cam, 1.3, tree=jtree)
+    r = tvr.VolumeRaycastRenderer(device="cpu").init(
+        make_sphere_grid(32, device="cpu"))
+    r.update_frustum_culling(cam, 1.3, tree=ttree)
+    np.testing.assert_array_equal(r.textures.working.numpy(),
+                                  np.asarray(jr.textures.working))
 
 
 def test_textures_round_trip(scene):
