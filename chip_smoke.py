@@ -1645,6 +1645,35 @@ SPHERE_COUNTS = dict(nodes=374921, leaves=328056, mc=493816, blocks=399372,
 # the CPU tests' bars for DC against a reference: vertices, normals
 DC_TOL = (2e-6, 2e-4)
 N_QUERIES = 1 << 16   # seeded find_node queries (phase 23)
+# a frustum margin that culls part of the sphere's tree at the bench pose
+# (the CPU tests' margin; the config's margins, 50, 150 and 20, keep every
+# node of a scene one unit across)
+CULL_MARGIN = 0.05
+# the host's waits for the card in one call of each extraction pipeline:
+# adaptive DC waits for the need-vertex mask, the fan candidates and the
+# kept rows, and with its rows on the host for their two copies
+HOST_SYNCS = {"adaptive_dc": 3, "adaptive_dc host rows": 5,
+              "adaptive_dc culled": 3, "adaptive_dc culled 0.05": 3}
+
+
+def count_syncs(fn) -> int:
+    """The times one call of ``fn`` makes the host wait for the card, as
+    PyTorch's sync debug mode reports them (copies to the host, nonzero,
+    item, blocking copies from pageable host memory)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
 
 
 def kernel_counts() -> dict:
@@ -1662,10 +1691,11 @@ def kernel_counts() -> dict:
 def extraction_phases(ctx: dict) -> dict:
     """Phases 23-25: the linear octree of the 256^3 sphere (build, node-id
     volume, both lookups), the three extraction pipelines at the bench
-    pose unculled and culled, with their times, triangles/s, peak memory
-    and DC's idle share, and card against CPU on the 32^3 and 64^3
-    spheres. Extraction is plain PyTorch: every kernel's count must stay
-    0 over phase 24. Returns the record's section, with the tree
+    pose unculled and culled (at the config's margin and at CULL_MARGIN,
+    which culls part of the tree), with their times, triangles/s, peak
+    memory, host syncs and DC's idle share, and card against CPU on the
+    32^3 and 64^3 spheres, unculled and at CULL_MARGIN. Extraction is
+    plain PyTorch: every kernel's count must stay 0 over phase 24. Returns the record's section, with the tree
     ("tree") for phase 26."""
     import numpy as np
     import torch
@@ -1695,7 +1725,7 @@ def extraction_phases(ctx: dict) -> dict:
 
     # 23. the linear octree
     torch.cuda.reset_peak_memory_stats()
-    tree, build_s = timed(lambda: build_linear_octree(grid.occ))
+    tree, build_s = timed(lambda: build_linear_octree(grid.occ, device=dev))
     vol, vol_s = timed(lambda: build_node_id_volume(tree))
     n_leaves = int(tree.is_leaf.sum())
     leaf = tree.is_leaf
@@ -1738,8 +1768,13 @@ def extraction_phases(ctx: dict) -> dict:
     meta = dc.tree_host_meta(tree)
     node_mask = visible_node_mask(tree, grid.origin, grid.voxel_size, vp,
                                   margin)
+    tight_mask = visible_node_mask(tree, grid.origin, grid.voxel_size, vp,
+                                   CULL_MARGIN)
+    tight = cfg.replace(extraction_frustum_margin=CULL_MARGIN)
     mc = MarchingCubesRenderer(cfg, device=dev)
     vb = VoxelBlockRenderer(cfg, device=dev)
+    mc_tight = MarchingCubesRenderer(tight, device=dev)
+    vb_tight = VoxelBlockRenderer(tight, device=dev)
     g64 = make_sphere_grid(64, device=dev)
 
     def adaptive(**kw):
@@ -1749,11 +1784,15 @@ def extraction_phases(ctx: dict) -> dict:
     pipelines = {
         "mc": lambda: mc.render(grid),
         "mc culled": lambda: mc.render(grid, vp),
+        "mc culled 0.05": lambda: mc_tight.render(grid, vp),
         "blocks": lambda: vb.render(grid, tree),
         "blocks culled": lambda: vb.render(grid, tree, vp),
+        "blocks culled 0.05": lambda: vb_tight.render(grid, tree, vp),
         "adaptive_dc": adaptive(device_out=True),
         "adaptive_dc host rows": adaptive(),
         "adaptive_dc culled": adaptive(device_out=True, node_mask=node_mask),
+        "adaptive_dc culled 0.05": adaptive(device_out=True,
+                                            node_mask=tight_mask),
         "uniform_dc 64^3": lambda: dc.dual_contour_uniform(
             g64, 65536, 262144, device=dev),
     }
@@ -1772,7 +1811,7 @@ def extraction_phases(ctx: dict) -> dict:
         n = int(out[2])
         run = dict(triangles=n, first_ms=first_s * 1e3, ms=min(wins),
                    ms_windows=wins, triangles_per_s=n / (min(wins) / 1e3),
-                   peak_bytes=peak)
+                   peak_bytes=peak, host_syncs=count_syncs(fn))
         if "dc" in name:
             wall, per = profiled(fn, 1)
             busy = sum(per.values())
@@ -1784,13 +1823,15 @@ def extraction_phases(ctx: dict) -> dict:
             f"warm (windows {', '.join(f'{w:.2f}' for w in wins)}; first "
             f"{first_s * 1e3:.1f}), {run['triangles_per_s'] / 1e6:.2f} M "
             f"triangles/s, peak {peak / 2 ** 30:.3f} GiB above the "
-            f"resident {base / 2 ** 30:.2f}"
+            f"resident {base / 2 ** 30:.2f}, {run['host_syncs']} host syncs"
             + (f", idle share {run['idle_share']}" if "dc" in name else ""))
     after = kernel_counts()
     launched = {k: after[k] - before[k] for k in after}
     rec["extraction"] = dict(pose="bench (theta 0.9, phi 0.8, radius 0.75 x "
                              "extent), 16:9 projection", margin=margin,
                              visible_nodes=int(node_mask.sum()),
+                             cull_margin=CULL_MARGIN,
+                             visible_nodes_cull_margin=int(tight_mask.sum()),
                              runs=runs, kernel_launches=launched)
     host, devo = outs["adaptive_dc host rows"], outs["adaptive_dc"]
     same_rows = torch.equal(devo[0].cpu(), host[0]) and torch.equal(
@@ -1804,6 +1845,15 @@ def extraction_phases(ctx: dict) -> dict:
     for name in ("mc", "blocks", "adaptive_dc"):
         if runs[f"{name} culled"]["triangles"] > runs[name]["triangles"]:
             raise RuntimeError(f"{name}: culling added triangles")
+        if not (0 < runs[f"{name} culled 0.05"]["triangles"]
+                < runs[name]["triangles"]):
+            raise RuntimeError(f"{name}: margin {CULL_MARGIN} culled "
+                               f"nothing or everything")
+    syncs = {k: v["host_syncs"] for k, v in runs.items()}
+    want_syncs = {k: HOST_SYNCS.get(k, 0) for k in runs}
+    if syncs != want_syncs:
+        raise RuntimeError(f"extraction's host syncs {syncs}, not "
+                           f"{want_syncs}")
     if not same_rows:
         raise RuntimeError("adaptive DC's device rows differ from its host "
                            "rows")
@@ -1818,9 +1868,10 @@ def extraction_phases(ctx: dict) -> dict:
     if any(launched.values()):
         raise RuntimeError(f"extraction launched kernels: {launched}")
     log("extraction", f"no kernel launched over the {len(pipelines)} "
-        f"pipelines x 5 runs: {launched}; device rows = host rows "
+        f"pipelines' runs: {launched}; device rows = host rows "
         f"{same_rows}; {int(node_mask.sum())} of {tree.num_nodes} nodes "
-        f"visible at margin {margin}")
+        f"visible at margin {margin}, {int(tight_mask.sum())} at margin "
+        f"{CULL_MARGIN}; host syncs {syncs}")
 
     # 25. the card against the CPU on the 32^3 and 64^3 spheres
     import dataclasses
@@ -1829,19 +1880,33 @@ def extraction_phases(ctx: dict) -> dict:
     for dim in (32, 64):
         gc = make_sphere_grid(dim, device="cpu")
         gg = gc.to(dev)
-        tc, tg = build_linear_octree(gc.occ), build_linear_octree(gg.occ)
+        tc = build_linear_octree(gc.occ, device="cpu")
+        tg = build_linear_octree(gg.occ, device=dev)
         vc, vg = build_node_id_volume(tc), build_node_id_volume(tg)
         tree_eq = all(torch.equal(getattr(tg, f.name).cpu(),
                                   getattr(tc, f.name))
                       for f in dataclasses.fields(tc)) and torch.equal(
             vg.cpu(), vc)
+        # node masks at a margin that culls part of the tree
+        mc_ = visible_node_mask(tc, gc.origin, gc.voxel_size, vp,
+                                CULL_MARGIN)
+        mg = visible_node_mask(tg, gg.origin, gg.voxel_size, vp,
+                               CULL_MARGIN)
+        mask_eq = torch.equal(mg.cpu(), mc_)
         n_mc = int(mcm.count_mc_triangles(gc))
         n_bl = int(blocks.count_block_triangles(gc, tc))
+        cut = tight.replace(max_triangles=max(n_mc, n_bl))
+        culled = {d: (MarchingCubesRenderer(cut, device=d),
+                      VoxelBlockRenderer(cut, device=d)) for d in ("cpu", dev)}
         soups = {
             "mc": (mcm.marching_cubes_grid(gc, n_mc, device="cpu"),
                    mcm.marching_cubes_grid(gg, n_mc, device=dev)),
             "blocks": (blocks.extract_block_faces(gc, tc, n_bl, device="cpu"),
                        blocks.extract_block_faces(gg, tg, n_bl, device=dev)),
+            "mc culled": (culled["cpu"][0].render(gc, vp),
+                          culled[dev][0].render(gg, vp)),
+            "blocks culled": (culled["cpu"][1].render(gc, tc, vp),
+                              culled[dev][1].render(gg, tg, vp)),
         }
         exact = {k: int(a[2]) == int(b[2]) and all(
             torch.equal(x.cpu(), y) for x, y in zip(b[:2], a[:2]))
@@ -1852,6 +1917,11 @@ def extraction_phases(ctx: dict) -> dict:
                                             device="cpu"),
                 dc.adaptive_dual_contouring(gg, tg, node_id_vol=vg,
                                             device=dev)),
+            "adaptive_dc culled": (
+                dc.adaptive_dual_contouring(gc, tc, node_mask=mc_,
+                                            node_id_vol=vc, device="cpu"),
+                dc.adaptive_dual_contouring(gg, tg, node_mask=mg,
+                                            node_id_vol=vg, device=dev)),
             "uniform_dc": (dc.dual_contour_uniform(gc, 65536, 262144,
                                                    device="cpu"),
                            dc.dual_contour_uniform(gg, 65536, 262144,
@@ -1865,13 +1935,24 @@ def extraction_phases(ctx: dict) -> dict:
             close[k] = dict(count_cpu=c, count_card=int(b[2]), max_vertex=dv,
                             max_normal=dn, ok=int(b[2]) == c and dv <= DC_TOL[0]
                             and dn <= DC_TOL[1])
+        kept = {k: (int(soups[f"{k} culled"][0][2]), int(soups[k][0][2]))
+                for k in ("mc", "blocks")}
+        kept["adaptive_dc"] = (close["adaptive_dc culled"]["count_cpu"],
+                               close["adaptive_dc"]["count_cpu"])
+        cuts = all(0 < a < b for a, b in kept.values()) and 0 < int(
+            mc_.sum()) < tc.num_nodes
         cmp[f"{dim}^3"] = dict(tree_bitwise=tree_eq, bitwise=exact,
                                triangles={"mc": n_mc, "blocks": n_bl},
-                               dc=close)
+                               dc=close, cull_margin=CULL_MARGIN,
+                               node_mask_bitwise=mask_eq,
+                               visible_nodes=int(mc_.sum()),
+                               culled_vs_unculled_triangles=kept)
         log("extraction card vs CPU", f"{dim}^3 sphere: tree and node-id "
             f"volume equal {tree_eq}; MC ({n_mc}) and blocks ({n_bl}) "
-            f"bitwise {exact}; DC {close}")
-        if not (tree_eq and all(exact.values())
+            f"bitwise {exact}; DC {close}; at margin {CULL_MARGIN} "
+            f"{int(mc_.sum())} of {tc.num_nodes} nodes visible, node masks "
+            f"equal {mask_eq}, triangles (culled, unculled) {kept}")
+        if not (tree_eq and mask_eq and cuts and all(exact.values())
                 and all(v["ok"] for v in close.values())):
             raise RuntimeError(f"extraction on the card disagrees with the "
                                f"CPU on the {dim}^3 sphere: {cmp[f'{dim}^3']}")
@@ -1885,20 +1966,28 @@ def linear_tree_phases(ctx: dict) -> dict:
     pose (visible_count against a recount of visible_node_mask, every
     child index of visible_tree in range or -1), then render at 1920x1080
     (fast=True at the bench pose, the default route at radius 2.0) with
-    every kernel call held bitwise; and draw_fast at 1920x1080 after
+    every kernel call held bitwise; update_frustum at CULL_MARGIN, which
+    culls part of the tree, its visible_tree bitwise against the CPU's;
+    draw_fast at 1920x1080 after
     VolumeRaycastRenderer.update_frustum_culling(tree=...), its
-    warp_lookup_multi counted and held. Returns the record's section,
+    warp_lookup_multi counted and held; and the exact working volume at
+    CULL_MARGIN bitwise against the CPU's. Returns the record's section,
     with the kernels' launches ("launches") and held calls ("held") by
     path."""
     import numpy as np
     import torch
 
+    from ray_tracing_octrees_tpu_torch.models import volume_raycaster as vr
     from ray_tracing_octrees_tpu_torch.models.octree_raytracer import (
         OctreeRayTracer,
     )
+    from ray_tracing_octrees_tpu_torch.render.camera import perspective
     from ray_tracing_octrees_tpu_torch.render.frustum import visible_node_mask
     from ray_tracing_octrees_tpu_torch.trace import (
         fast_exact, slab_sweep, sweep_exact,
+    )
+    from ray_tracing_octrees_tpu_torch.trace.octree_trace import (
+        compact_visible_nodes,
     )
     from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep as rs
     from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
@@ -1937,6 +2026,35 @@ def linear_tree_phases(ctx: dict) -> dict:
     if n_vis != recount or not children_ok:
         raise RuntimeError(f"the compacted node buffer is wrong: "
                            f"{out['tracer_tree']}")
+    # at a margin that culls part of the tree: the compaction and its
+    # child remap against the same functions on the CPU
+    cull_cfg = tracer.config.replace(raytrace=dataclasses.replace(
+        tracer.config.raytrace, frustum_margin=CULL_MARGIN))
+    culling = OctreeRayTracer(config=cull_cfg, device=dev)
+    culling.set_octree(grid, pyramid=ctx["pyr"], tree=tree)
+    culling.update_frustum(vp)
+    tree_cpu = tree.to("cpu")
+    ref_tree, ref_count = compact_visible_nodes(tree_cpu, visible_node_mask(
+        tree_cpu, grid.origin.cpu(), grid.voxel_size.cpu(), vp, CULL_MARGIN))
+    got = culling.visible_tree
+    tree_equal = all(torch.equal(getattr(got, f.name).cpu(),
+                                 getattr(ref_tree, f.name))
+                     for f in dataclasses.fields(ref_tree))
+    ch = got.children
+    n_cut = culling.visible_count
+    cut_children_ok = bool(((ch == -1) | ((ch >= 0) & (ch < n_cut))).all())
+    out["tracer_tree_culled"] = dict(
+        margin=CULL_MARGIN, visible_count=n_cut, cpu_count=int(ref_count),
+        nodes=tree.num_nodes, visible_tree_bitwise_cpu=tree_equal,
+        children_in_range=cut_children_ok)
+    log("linear tree", f"update_frustum at margin {CULL_MARGIN}: "
+        f"visible_count {n_cut} of {tree.num_nodes} (CPU {int(ref_count)}), "
+        f"visible_tree bitwise equal to the CPU's {tree_equal}, children in "
+        f"range or -1 {cut_children_ok}")
+    if not (tree_equal and cut_children_ok and n_cut == int(ref_count)
+            and 0 < n_cut < tree.num_nodes):
+        raise RuntimeError(f"the culled node buffer is wrong: "
+                           f"{out['tracer_tree_culled']}")
     for label, camera, kw, want in (
             ("fast=True, bench pose", ctx["bench_camera"], dict(fast=True),
              "fast"),
@@ -1979,6 +2097,18 @@ def linear_tree_phases(ctx: dict) -> dict:
     torch.cuda.synchronize()
     wv_s = time.perf_counter() - t
     kept_tree = int((r.textures.working > 0).sum())
+    # the exact working volume at a margin that culls part of the tree,
+    # against the CPU's
+    wvp = (perspective(r.config.raymarch.frustum_fov_narrow_deg, aspect,
+                       0.01, 5000.0) @ cam.get_view()).astype(np.float32)
+    wv_card = vr._working_volume_octree(grid.occ, tree, grid.origin,
+                                        grid.voxel_size, wvp, CULL_MARGIN)
+    wv_cpu = vr._working_volume_octree(grid.occ.cpu(), tree_cpu,
+                                       grid.origin.cpu(),
+                                       grid.voxel_size.cpu(), wvp,
+                                       CULL_MARGIN)
+    wv_equal = torch.equal(wv_card.cpu(), wv_cpu)
+    kept_cut = int((wv_cpu > 0).sum())
     wk.warp_lookup_multi.launches = 0
     calls, restore = held_calls([(rs, "warp_lookup_multi")])
     t = time.perf_counter()
@@ -1998,9 +2128,12 @@ def linear_tree_phases(ctx: dict) -> dict:
     color = frame["color"]
     hits = frame["alpha"] >= 0.1
     n_lit = int((hits & (color[..., :3].amax(-1) > 0)).sum())
+    solid = int((grid.occ > 0).sum())
     out["volume"] = dict(voxels_kept_tree=kept_tree,
                          voxels_kept_8cubed_cells=kept_cells,
-                         solid_voxels=int((grid.occ > 0).sum()),
+                         solid_voxels=solid, cull_margin=CULL_MARGIN,
+                         voxels_kept_tree_cull_margin=kept_cut,
+                         working_volume_bitwise_cpu=wv_equal,
                          working_volume_octree_s=wv_s,
                          frame_ms_with_scene_rebuild=first_ms,
                          launches=launches, lit=n_lit)
@@ -2009,7 +2142,13 @@ def linear_tree_phases(ctx: dict) -> dict:
         f"working volume keeps {kept_cells} of "
         f"{out['volume']['solid_voxels']}), {wv_s * 1e3:.1f} ms; draw_fast "
         f"{WIDTH}x{HEIGHT} {first_ms:.1f} ms with the sweep scene rebuilt; "
-        f"warp_lookup_multi {launches} launches, held {held}; {n_lit} lit")
+        f"warp_lookup_multi {launches} launches, held {held}; {n_lit} lit; "
+        f"at margin {CULL_MARGIN} the exact working volume keeps {kept_cut} "
+        f"voxels, bitwise equal to the CPU's {wv_equal}")
+    if not (wv_equal and 0 < kept_cut < solid):
+        raise RuntimeError(f"the exact working volume at margin "
+                           f"{CULL_MARGIN}: {kept_cut} of {solid} voxels "
+                           f"kept, equal to the CPU's {wv_equal}")
     if launches < 1 or not bool(torch.isfinite(color).all()) or not n_lit:
         raise RuntimeError(f"the volume frame after the exact culling: "
                            f"{launches} launches, {n_lit} lit pixels")

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -26,3 +27,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """Host array ``a`` on ``device``, without waiting for the device.
+
+    A copy from pageable host memory to CUDA waits for all queued work
+    first; a copy from pinned memory is only queued on the current stream
+    (the pinned buffer is held until the copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -11,7 +11,6 @@ renderer's device (CUDA unless ``device="cpu"``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
 from ray_tracing_octrees_tpu_torch.config import DEFAULT_CONFIG, EngineConfig
@@ -39,20 +38,18 @@ class MarchingCubesRenderer:
     """
 
     config: EngineConfig = DEFAULT_CONFIG
-    max_triangles: Optional[int] = None
     device: DeviceLike = None
 
     def render(self, grid: VoxelGrid, view_proj=None):
         dev = resolve_device(self.device)
         grid = grid.to(dev)
-        cap = self.max_triangles or self.config.max_triangles
         mask = None
         if view_proj is not None:
             mask = visible_cell_mask(
-                grid.occ.shape, grid.origin.cpu().numpy(),
-                float(grid.voxel_size), view_proj,
+                grid.occ.shape, grid.origin, grid.voxel_size, view_proj,
                 self.config.extraction_frustum_margin, device=dev)
-        return marching_cubes_grid(grid, cap, cell_mask=mask, device=dev)
+        return marching_cubes_grid(grid, self.config.max_triangles,
+                                   cell_mask=mask, device=dev)
 
     def count(self, grid: VoxelGrid):
         return count_mc_triangles(grid.to(resolve_device(self.device)))
@@ -64,20 +61,18 @@ class VoxelBlockRenderer:
     culling."""
 
     config: EngineConfig = DEFAULT_CONFIG
-    max_triangles: Optional[int] = None
     device: DeviceLike = None
 
     def render(self, grid: VoxelGrid, tree: LinearOctree, view_proj=None):
         dev = resolve_device(self.device)
         grid, tree = grid.to(dev), tree.to(dev)
-        cap = self.max_triangles or self.config.max_triangles
         mask = None
         if view_proj is not None:
             mask = visible_node_mask(tree, grid.origin, grid.voxel_size,
                                      view_proj,
                                      self.config.extraction_frustum_margin)
-        return extract_block_faces(grid, tree, cap, node_mask=mask,
-                                   device=dev)
+        return extract_block_faces(grid, tree, self.config.max_triangles,
+                                   node_mask=mask, device=dev)
 
     def count(self, grid: VoxelGrid, tree: LinearOctree):
         dev = resolve_device(self.device)

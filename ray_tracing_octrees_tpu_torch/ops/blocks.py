@@ -14,12 +14,15 @@ main.cpp:154-189).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
+from ray_tracing_octrees_tpu_torch._device import (
+    DeviceLike, resolve_device, upload,
+)
 from ray_tracing_octrees_tpu_torch.core.grid import VoxelGrid
 from ray_tracing_octrees_tpu_torch.core.octree import LinearOctree
 from ray_tracing_octrees_tpu_torch.trace.raymarch import _fma
@@ -47,6 +50,12 @@ _FACE_QUADS = np.array(
 _TRI_CORNERS = np.array([[0, 1, 3], [3, 1, 2]], np.int32)
 # [6, 2, 3, 3] corner selectors per face / triangle / vertex
 _FACE_TRIS = _FACE_QUADS[:, _TRI_CORNERS]
+
+
+@functools.lru_cache(maxsize=None)
+def _face_tables(dev: torch.device):
+    """(_FACE_TRIS, _FACE_NORMALS) on ``dev``, uploaded once a device."""
+    return upload(_FACE_TRIS, dev), upload(_FACE_NORMALS, dev)
 
 
 def _probe_coords(x0, y0, z0, size):
@@ -105,9 +114,10 @@ def extract_block_faces(grid: VoxelGrid, tree: LinearOctree,
     xyz0 = torch.stack([tree.x[node], tree.y[node], tree.z[node]], -1).to(f32)
     min_c = _fma(xyz0, grid.voxel_size, grid.origin[None, :])        # [T, 3]
     ext = tree.size[node].to(f32)[:, None] * grid.voxel_size
-    sel = torch.as_tensor(_FACE_TRIS, device=dev)[face, tri_t]       # [T, 3, 3]
+    face_tris, face_normals = _face_tables(dev)
+    sel = face_tris[face, tri_t]                                 # [T, 3, 3]
     verts = _fma(sel.to(f32), ext[:, None, :], min_c[:, None, :])
-    normals = torch.as_tensor(_FACE_NORMALS, device=dev)[face]
+    normals = face_normals[face]
     verts = torch.where(valid[:, None, None], verts, 0.0)
     normals = torch.where(valid[:, None], normals, 0.0)
     return verts, normals, count

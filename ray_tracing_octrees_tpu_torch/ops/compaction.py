@@ -37,9 +37,10 @@ def mark_true(flags: torch.Tensor, idx: torch.Tensor,
     """``flags[idx[on]] = True`` in place, with no host sync (the
     reference's bool ``.at[idx].max(on, mode="drop")``): the rows that are
     off write the spare last slot of ``flags`` (bool[N + 1]), which the
-    caller cuts off."""
+    caller cuts off. ``index_fill_`` takes True as a kernel argument;
+    ``flags[i] = True`` on CUDA would copy it from the host and wait."""
     spare = flags.shape[0] - 1
-    flags[torch.where(on, idx.long(), spare).reshape(-1)] = True
+    flags.index_fill_(0, torch.where(on, idx.long(), spare).reshape(-1), True)
 
 
 def compact_indices(mask: torch.Tensor,

@@ -24,9 +24,11 @@ perpendicular to the edge axis, oriented filled -> empty.
 
 The adaptive path is paced by the host, level by level, with the
 reference package's syncs and no more: the per-level leaf ids come from
-host copies of ``is_leaf`` / ``level`` (``tree_meta``), then one pull of
-the need-vertex mask, one of the fan candidates and one for the kept
-triangles (and the copy to the host unless ``device_out``). Left out, as
+host copies of ``is_leaf`` / ``level`` (``tree_meta``) and go to the
+device in one copy from pinned memory, which does not wait; the host then
+waits three times, for the need-vertex mask, the fan candidates' count
+and the kept triangles' count (and twice more, for the copies to the
+host, unless ``device_out``). Left out, as
 they exist only for XLA: ``_pad_pow2``'s power-of-two id buckets and the
 64k / 8k output buckets (they bound recompiles; every batch here has its
 exact size, and padded rows never emitted, so the kept order is the
@@ -36,11 +38,15 @@ aligned repack (they work round a remote runtime's dispatch floor).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
-from ray_tracing_octrees_tpu_torch.config import DCConfig, QEFConfig
+from ray_tracing_octrees_tpu_torch._device import (
+    DeviceLike, resolve_device, upload,
+)
+from ray_tracing_octrees_tpu_torch.config import DCConfig
 from ray_tracing_octrees_tpu_torch.core.grid import VoxelGrid
 from ray_tracing_octrees_tpu_torch.core.octree import (
     LinearOctree, find_node_vol,
@@ -62,7 +68,52 @@ _AXES = np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1]], np.int32)
 _PERP = {0: (1, 2), 1: (0, 2), 2: (0, 1)}  # dir -> perpendicular axes
 _FACE_DIRS = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
                        [0, 0, 1], [0, 0, -1]], np.int32)
+_TABLES = dict(
+    axes=_AXES.astype(np.float32),
+    # corner i takes the max end on axis a iff bit a of i
+    corners=np.array([[(i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1]
+                      for i in range(8)], bool),
+    # dual_contour_uniform's quad corner steps per face direction
+    d01=np.array([[0, 1, 0], [1, 0, 0], [0, 1, 0]], np.int32),
+    d10=np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1]], np.int32),
+    face_normals=_FACE_DIRS.astype(np.float32),
+    # per face axis, the two tangents of the boundary fans' grid
+    tangents=np.array([[[0, 1, 0], [0, 0, 1]], [[1, 0, 0], [0, 0, 1]],
+                       [[1, 0, 0], [0, 1, 0]]], np.float32),
+)
 
+
+# The tables go to a device once (and once a cell size): a copy from host
+# memory made per call would wait for the queued work.
+
+@functools.lru_cache(maxsize=None)
+def _tables(dev: torch.device) -> dict:
+    return {k: upload(a, dev) for k, a in _TABLES.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _shell_offsets(size: int, stride: int, dev: torch.device):
+    """gather_cell_hermite's scanned lattice offsets, per edge axis: a
+    tuple of 3 (ox, oy, oz) int32 tensors on ``dev``."""
+    offs = np.arange(0, size + 1, stride, dtype=np.int32)
+    ozg, oyg, oxg = np.meshgrid(offs, offs, offs, indexing="ij")
+    oall = (oxg.reshape(-1), oyg.reshape(-1), ozg.reshape(-1))
+    out = []
+    for axis in range(3):
+        keep = oall[axis] >= size - 1
+        for b in range(3):
+            if b != axis:
+                keep = keep | (oall[b] == size)
+        out.append(tuple(upload(o[keep], dev) for o in oall))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _interior_offsets(size: int, dev: torch.device):
+    """(ox, oy, oz) int32[size^3] on ``dev``: every voxel of a cell."""
+    o = np.arange(size, dtype=np.int32)
+    ozg, oyg, oxg = np.meshgrid(o, o, o, indexing="ij")
+    return tuple(upload(g.reshape(-1), dev) for g in (oxg, oyg, ozg))
 
 def _in_dims(dims, *xyz):
     """All of the (x, y, z) triples inside [0, dims)."""
@@ -108,7 +159,7 @@ def edge_hermite(grid: VoxelGrid, x, y, z, axis: int):
         n = torch.stack([g1, g2, torch.zeros_like(g1)], -1)
 
     len2 = (n * n).sum(-1)          # small integers: exact in any order
-    edge_dir = torch.as_tensor(ax, dtype=f32, device=n.device)
+    edge_dir = _tables(n.device)["axes"][axis]
     n_unit = n / torch.clamp(_sqrt(len2)[..., None], min=1e-30)
     n = torch.where((len2 < 1e-10)[..., None], edge_dir, n_unit)
 
@@ -133,19 +184,11 @@ def gather_cell_hermite(grid: VoxelGrid, cx, cy, cz, size: int, stride: int):
     on a far face (an offset == size on another axis). Only that shell is
     scanned, which equals the full cube scan on uniform cells.
     """
-    dev = grid.device
-    offs = np.arange(0, size + 1, stride, dtype=np.int32)
-    ozg, oyg, oxg = np.meshgrid(offs, offs, offs, indexing="ij")
-    oall = (oxg.reshape(-1), oyg.reshape(-1), ozg.reshape(-1))
     dims = grid.dims_xyz
     cx, cy, cz = (c.to(torch.int32) for c in (cx, cy, cz))
     pts, nrms, msks = [], [], []
-    for axis in range(3):
-        keep = oall[axis] >= size - 1
-        for b in range(3):
-            if b != axis:
-                keep = keep | (oall[b] == size)
-        sx, sy, sz = (torch.as_tensor(o[keep], device=dev) for o in oall)
+    for axis, (sx, sy, sz) in enumerate(
+            _shell_offsets(size, stride, grid.device)):
         px = cx[:, None] + sx[None, :]
         py = cy[:, None] + sy[None, :]
         pz = cz[:, None] + sz[None, :]
@@ -190,7 +233,6 @@ def _decode3(lin, ny: int, nx: int):
 
 
 def dual_contour_uniform(grid: VoxelGrid, max_cells: int, max_triangles: int,
-                         qef_cfg: QEFConfig = QEFConfig(),
                          device: DeviceLike = None):
     """Single-pass per-voxel DC (the fixed GPU design), on ``device``
     (CUDA unless ``device="cpu"``). Returns (verts f32[max_triangles, 3,
@@ -226,7 +268,7 @@ def dual_contour_uniform(grid: VoxelGrid, max_cells: int, max_triangles: int,
     msk = msk & valid_cell[:, None]
     centers = grid.voxel_center(acx, acy, acz)
     cell_size = grid.voxel_size.expand(centers.shape[:1])
-    dual = generate_dual_vertex(pts, nrms, msk, centers, cell_size, qef_cfg)
+    dual = generate_dual_vertex(pts, nrms, msk, centers, cell_size)
 
     # dense vertex field, default the voxel centre
     zz, yy, xx = torch.meshgrid(*(torch.arange(n, dtype=torch.int32,
@@ -258,10 +300,7 @@ def dual_contour_uniform(grid: VoxelGrid, max_cells: int, max_triangles: int,
     #  +X: V00=(x,y,z) V01=(x,y+1,z) V10=(x+1,y,z) V11=(x+1,y+1,z)
     #  +Y: V00=(x,y,z) V01=(x+1,y,z) V10=(x,y+1,z) V11=(x+1,y+1,z)
     #  +Z: V00=(x,y,z) V01=(x,y+1,z) V10=(x,y,z+1) V11=(x,y+1,z+1)
-    d01 = torch.tensor([[0, 1, 0], [1, 0, 0], [0, 1, 0]], dtype=torch.int32,
-                       device=dev)[f_dir]
-    d10 = torch.tensor([[1, 0, 0], [0, 1, 0], [0, 0, 1]], dtype=torch.int32,
-                       device=dev)[f_dir]
+    d01, d10 = (_tables(dev)[k][f_dir] for k in ("d01", "d10"))
     at = lambda ox, oy, oz: vert_field[(cz_ + oz).long(), (cy_ + oy).long(),
                                        (cx_ + ox).long()]
     v00 = at(0, 0, 0)
@@ -304,8 +343,7 @@ def cell_contains_surface(grid: VoxelGrid, cx, cy, cz, size: int):
         return _in_dims((dx, dy, dz), x, y, z), grid.sample_safe(x, y, z) > 0
 
     # corners, [C, 8]
-    sel = torch.tensor([[(i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1]
-                        for i in range(8)], dtype=torch.bool, device=dev)
+    sel = _tables(dev)["corners"]
     qx = torch.where(sel[None, :, 0], (max_x - 1)[:, None], min_x[:, None])
     qy = torch.where(sel[None, :, 1], (max_y - 1)[:, None], min_y[:, None])
     qz = torch.where(sel[None, :, 2], (max_z - 1)[:, None], min_z[:, None])
@@ -340,9 +378,7 @@ def cell_contains_surface(grid: VoxelGrid, cx, cy, cz, size: int):
 
     # exhaustive interior scan for small cells, [C, size^3]
     if size <= 4:
-        o = np.arange(size, dtype=np.int32)
-        ozg, oyg, oxg = (torch.as_tensor(g.reshape(-1), device=dev)
-                         for g in np.meshgrid(o, o, o, indexing="ij"))
+        oxg, oyg, ozg = _interior_offsets(size, dev)
         x = min_x[:, None] + oxg[None, :]
         y = min_y[:, None] + oyg[None, :]
         z = min_z[:, None] + ozg[None, :]
@@ -432,8 +468,7 @@ def _pass0_level(grid, tree, id_vol, ids, node_mask, need_vertex, s: int,
     return surf, adj_per_dir
 
 
-def _pass1_level(grid, tree, vertex, ids, s: int, stride: int,
-                 qef_cfg: QEFConfig):
+def _pass1_level(grid, tree, vertex, ids, s: int, stride: int):
     """One level of pass 1: the hermite shell scan and the QEF dual
     vertex of every needed leaf of size ``s``, written into ``vertex``."""
     ids_l = ids.long()
@@ -442,7 +477,7 @@ def _pass1_level(grid, tree, vertex, ids, s: int, stride: int,
     cell_size = torch.full((ids.shape[0],), float(s), dtype=f32,
                            device=vertex.device) * grid.voxel_size
     vertex[ids_l] = generate_dual_vertex(pts, nrms, msk, vertex[ids_l],
-                                         cell_size, qef_cfg)
+                                         cell_size)
 
 
 def _pass2(tree, vertex, ids, adj_per_dir, emitted_any, area_eps: float):
@@ -489,10 +524,18 @@ def tree_host_meta(tree: LinearOctree):
     return tree.is_leaf.cpu().numpy().astype(bool), tree.level.cpu().numpy()
 
 
+def _level_batches(ids_by_level, dev):
+    """{level: int32 ids on ``dev``} from host id arrays, in one upload."""
+    if not ids_by_level:
+        return {}
+    flat = upload(np.concatenate(list(ids_by_level.values())), dev)
+    ends = np.cumsum([len(v) for v in ids_by_level.values()])
+    return {k: flat[e - len(v):e]
+            for (k, v), e in zip(ids_by_level.items(), ends)}
+
+
 def adaptive_dual_contouring(grid: VoxelGrid, tree: LinearOctree,
                              node_mask=None,
-                             qef_cfg: QEFConfig = QEFConfig(),
-                             dc_cfg: DCConfig = DCConfig(),
                              with_boundary_fans: bool = True,
                              node_id_vol=None, tree_meta=None,
                              device_out: bool = False,
@@ -519,31 +562,33 @@ def adaptive_dual_contouring(grid: VoxelGrid, tree: LinearOctree,
         node_id_vol = node_id_vol.to(dev)
     leaf, level = tree_meta if tree_meta is not None else tree_host_meta(tree)
     n_nodes = tree.num_nodes
-    max_ratio = float(dc_cfg.max_size_ratio)
 
     # ---- pass 0: surface leaves and crossing edges, level by level -------
     levels = sorted(set(level[leaf].tolist()))
-    level_ids = {k: np.nonzero(leaf & (level == k))[0].astype(np.int32)
-                 for k in levels}
+    level_ids = _level_batches(
+        {k: np.nonzero(leaf & (level == k))[0].astype(np.int32)
+         for k in levels}, dev)
     need_vertex = torch.zeros(n_nodes + 1, dtype=torch.bool, device=dev)
     seg = {}      # level -> (ids, surf, adjacency)
     for k in levels:
-        ids = torch.as_tensor(level_ids[k], device=dev)
+        ids = level_ids[k]
         surf, adj = _pass0_level(grid, tree, node_id_vol, ids, node_mask,
-                                 need_vertex, 1 << k, max_ratio)
+                                 need_vertex, 1 << k,
+                                 float(_DC.max_size_ratio))
         seg[k] = (ids, surf, adj)
 
     # ---- pass 1: dual vertices of every needed leaf ------------------------
     vertex = _node_centers(tree, grid)      # default: own-size cell centre
     need_np = need_vertex[:n_nodes].cpu().numpy()
+    needed = {}
     for k in levels:
         ids = np.nonzero(leaf & (level == k) & need_np)[0].astype(np.int32)
         if len(ids):
-            s = 1 << k
-            stride = dc_cfg.stride_large_cell \
-                if s > dc_cfg.stride_switch_size else 1
-            _pass1_level(grid, tree, vertex, torch.as_tensor(ids, device=dev),
-                         s, stride, qef_cfg)
+            needed[k] = ids
+    for k, ids in _level_batches(needed, dev).items():
+        s = 1 << k
+        stride = _DC.stride_large_cell if s > _DC.stride_switch_size else 1
+        _pass1_level(grid, tree, vertex, ids, s, stride)
 
     # ---- pass 2: triangle emission, every level's rows at once -------------
     emitted_any = torch.zeros(n_nodes + 1, dtype=torch.bool, device=dev)
@@ -555,12 +600,12 @@ def adaptive_dual_contouring(grid: VoxelGrid, tree: LinearOctree,
                            for i in range(2)) for j in range(3)])
                    for d in range(3)]
         parts.append(_pass2(tree, vertex, ids_cat, adj_cat, emitted_any,
-                            float(dc_cfg.degenerate_area_eps)))
+                            float(_DC.degenerate_area_eps)))
 
     # ---- pass 3: boundary face fans (createFaceTriangles fallback) ---------
     if with_boundary_fans and levels:
         fans = _boundary_face_fans(grid, tree, vertex, seg, levels,
-                                   emitted_any[:n_nodes], dc_cfg, node_id_vol)
+                                   emitted_any[:n_nodes], node_id_vol)
         if fans is not None:
             parts.append(fans)
 
@@ -579,13 +624,14 @@ def adaptive_dual_contouring(grid: VoxelGrid, tree: LinearOctree,
 
 
 def _boundary_face_fans(grid, tree, vertex, seg, levels, emitted_any,
-                        dc_cfg: DCConfig, id_vol=None):
+                        id_vol=None):
     """createFaceTriangles (AdaptiveDualContouringRenderer.cpp:805-1088)
     for surface leaves that emitted nothing and touch the grid boundary.
 
-    Candidates are compacted on the host before the 192-triangles-a-cell
-    expansion; every level's candidates then run in one batch (the size
-    is a per-row tensor). Returns (verts, normals, keep) or None."""
+    Candidates are compacted (one wait for their count) before the
+    192-triangles-a-cell expansion; every level's candidates then run in
+    one batch (the size is a per-row tensor). Returns (verts, normals,
+    keep) or None."""
     dev = grid.device
     ids_cat = torch.cat([seg[k][0] for k in levels])
     surf = torch.cat([seg[k][1] for k in levels])
@@ -597,13 +643,11 @@ def _boundary_face_fans(grid, tree, vertex, seg, levels, emitted_any,
     at_boundary = ((cx == 0) | (cy == 0) | (cz == 0) | (cx + s_cat >= dx)
                    | (cy + s_cat >= dy) | (cz + s_cat >= dz))
     eligible = surf & ~emitted_any[ids_l] & at_boundary
-    sel = np.nonzero(eligible.cpu().numpy())[0]
-    if len(sel) == 0:
+    sel = torch.nonzero(eligible).squeeze(1)
+    if sel.numel() == 0:
         return None
-    sel = torch.as_tensor(sel, device=dev)
     return _fan_level(grid, tree, vertex, id_vol, ids_cat[sel], s_cat[sel],
-                      int(dc_cfg.face_fan_divisions),
-                      float(dc_cfg.max_size_ratio))
+                      int(_DC.face_fan_divisions), float(_DC.max_size_ratio))
 
 
 def _fan_level(grid, tree, vertex, id_vol, ids, s, divisions: int,
@@ -618,9 +662,8 @@ def _fan_level(grid, tree, vertex, id_vol, ids, s, divisions: int,
     v_self = vertex[ids_l]
     solid_self = tree.is_solid[ids_l]
     half = (0.5 * s.to(f32) * grid.voxel_size)[:, None]       # [P, 1]
-    tangents = {0: ((0, 1, 0), (0, 0, 1)), 1: ((1, 0, 0), (0, 0, 1)),
-                2: ((1, 0, 0), (0, 1, 0))}
-    vec = lambda v: torch.tensor(v, dtype=f32, device=grid.device)
+    face_normals = _tables(grid.device)["face_normals"]
+    tangents = _tables(grid.device)["tangents"]
     fan_v, fan_n, fan_k = [], [], []
     for f, fd in enumerate(_FACE_DIRS):
         nx, ny, nz = (c + int(o) * s for c, o in zip((cx, cy, cz), fd))
@@ -646,8 +689,8 @@ def _fan_level(grid, tree, vertex, id_vol, ids, s, divisions: int,
         # size
         nb_center = grid.grid_to_world(nx, ny, nz) + half
         v_nb = torch.where(found_leaf[:, None], vertex[nid_c], nb_center)
-        t1v, t2v = (vec(t) for t in tangents[f // 2])
-        f_normal = vec(fd.tolist())
+        t1v, t2v = tangents[f // 2]
+        f_normal = face_normals[f]
         out_normal = torch.where(solid_self[:, None], f_normal[None, :],
                                  -f_normal[None, :])
         face_center = 0.5 * (v_self + v_nb)

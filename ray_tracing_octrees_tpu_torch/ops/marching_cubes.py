@@ -30,12 +30,15 @@ round as the reference does.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
+from ray_tracing_octrees_tpu_torch._device import (
+    DeviceLike, resolve_device, upload,
+)
 from ray_tracing_octrees_tpu_torch.core.grid import VoxelGrid
 from ray_tracing_octrees_tpu_torch.ops import mc_tables as t
 from ray_tracing_octrees_tpu_torch.trace.raymarch import _fma
@@ -44,8 +47,12 @@ from ray_tracing_octrees_tpu_torch.trace.slab_sweep import _sqrt
 f32 = torch.float32
 
 
-def _table(a: np.ndarray, dev) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+@functools.lru_cache(maxsize=None)
+def _tables(dev: torch.device):
+    """(TRI_COUNTS, TRI_EDGES, EDGE_CORNERS, CORNER_OFFSETS) as int32 on
+    ``dev``, uploaded once a device."""
+    return tuple(upload(np.asarray(a, np.int32), dev) for a in (
+        t.TRI_COUNTS, t.TRI_EDGES, t.EDGE_CORNERS, t.CORNER_OFFSETS))
 
 
 def cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -90,7 +97,7 @@ def count_mc_triangles(grid: VoxelGrid) -> torch.Tensor:
     """Total triangle count (int64 0-d tensor on the grid's device),
     without emitting geometry (capacity sizing)."""
     case = _cell_cases(grid.occ > 0)
-    return _table(t.TRI_COUNTS, grid.device)[case.long()].sum()
+    return _tables(grid.device)[0][case.long()].sum()
 
 
 def _interp_vertex(iso, p1, p2, v1, v2):
@@ -113,8 +120,9 @@ def _mc_impl(field: torch.Tensor, origin: torch.Tensor,
     dev = field.device
     dz, dy, dx = field.shape
     nzc, nyc, nxc = dz - 1, dy - 1, dx - 1
+    tri_counts, tri_edges, edge_corners, corner_offsets = _tables(dev)
     case = _cell_cases(field < iso).reshape(-1)
-    counts = _table(t.TRI_COUNTS, dev)[case.long()]
+    counts = tri_counts[case.long()]
     if cell_mask is not None:
         counts = torch.where(cell_mask.reshape(-1).to(dev), counts, 0)
     cap = int(max_triangles)
@@ -140,9 +148,9 @@ def _mc_impl(field: torch.Tensor, origin: torch.Tensor,
     cy = rem // nxc
     cx = rem - cy * nxc
     case_f = case[cell.long()].long()
-    edges3 = _table(t.TRI_EDGES, dev)[case_f, tri_t.long()].long()   # [T, 3]
-    corners = _table(t.EDGE_CORNERS, dev)[edges3].long()           # [T, 3, 2]
-    offs = _table(t.CORNER_OFFSETS, dev)[corners]                  # [T, 3, 2, 3]
+    edges3 = tri_edges[case_f, tri_t.long()].long()           # [T, 3]
+    corners = edge_corners[edges3].long()                     # [T, 3, 2]
+    offs = corner_offsets[corners]                            # [T, 3, 2, 3]
     px = cx[:, None, None] + offs[..., 0]
     py = cy[:, None, None] + offs[..., 1]
     pz = cz[:, None, None] + offs[..., 2]

@@ -15,7 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
+from ray_tracing_octrees_tpu_torch._device import (
+    DeviceLike, resolve_device, upload,
+)
 
 
 def frustum_planes(view_proj, device: DeviceLike = None) -> torch.Tensor:
@@ -24,8 +26,7 @@ def frustum_planes(view_proj, device: DeviceLike = None) -> torch.Tensor:
     The reference indexes glm column-major (viewProj[c][r]); with
     row-major M this is rows: left = row3 + row0, right = row3 - row0, ...
     """
-    m = torch.as_tensor(np.asarray(view_proj, np.float32),
-                        device=resolve_device(device))
+    m = upload(np.asarray(view_proj, np.float32), resolve_device(device))
     r0, r1, r2, r3 = m[0], m[1], m[2], m[3]
     planes = torch.stack([r3 + r0, r3 - r0, r3 + r1, r3 - r1, r3 + r2,
                           r3 - r2], dim=0)
@@ -80,8 +81,8 @@ def visible_cell_mask(dims_zyx, grid_origin, voxel_size, view_proj, margin,
     dz, dy, dx = dims_zyx
     planes = frustum_planes(view_proj, device)
     dev = planes.device
-    origin = torch.as_tensor(np.asarray(grid_origin, np.float32), device=dev)
-    vs = float(voxel_size)
+    origin = torch.as_tensor(grid_origin, dtype=f32, device=dev)
+    vs = torch.as_tensor(voxel_size, dtype=f32, device=dev)
     xs = origin[0] + torch.arange(dx - 1, dtype=f32, device=dev) * vs
     ys = origin[1] + torch.arange(dy - 1, dtype=f32, device=dev) * vs
     zs = origin[2] + torch.arange(dz - 1, dtype=f32, device=dev) * vs

@@ -406,8 +406,9 @@ def compact_visible_nodes(tree: LinearOctree, visible: torch.Tensor):
     int32 0-d tensor on the tree's device.
     """
     n = tree.num_nodes
-    vis = visible.to(tree.device).clone()
-    vis[0] = True          # root always kept (the reference keeps index 0)
+    # the root is always kept (the reference keeps index 0)
+    vis = visible.to(tree.device) | (
+        torch.arange(n, device=tree.device) == 0)
     new_idx = torch.cumsum(vis.to(torch.int32), 0, dtype=torch.int32) - 1
     slots = torch.where(vis, new_idx, n)
     scatter = lambda a, fill=0: scatter_drop(n, slots, a, fill)

@@ -649,8 +649,18 @@ def extraction_pair():
 
     torch.set_num_threads(2)
     g = make_sphere_grid(32, device="cpu")
-    return {dev: (g.to(dev), build_linear_octree(g.occ.to(dev)))
+    return {dev: (g.to(dev), build_linear_octree(g.occ, device=dev))
             for dev in ("cpu", "cuda")}
+
+
+# a margin and a pose that cull part of the 32^3 sphere's tree (the CPU
+# tests' margin; the config's margins keep every node at this scale)
+CULL_MARGIN = 0.05
+
+
+def _cull_vp(aspect):
+    cam = Camera(theta=0.9, phi=0.8, radius=0.6)
+    return (cam.get_proj(aspect) @ cam.get_view()).astype(np.float32)
 
 
 def test_linear_octree_card_vs_cpu(extraction_pair):
@@ -682,10 +692,9 @@ def test_mc_and_blocks_card_vs_cpu(extraction_pair):
         MarchingCubesRenderer, VoxelBlockRenderer,
     )
 
-    cfg = EngineConfig().replace(extraction_frustum_margin=0.05,
+    cfg = EngineConfig().replace(extraction_frustum_margin=CULL_MARGIN,
                                  max_triangles=20000)
-    cam = Camera(theta=0.9, phi=0.8, radius=0.6)
-    vp = (cam.get_proj(16 / 9) @ cam.get_view()).astype(np.float32)
+    vp = _cull_vp(16 / 9)
     outs = {}
     for dev, (g, tree) in extraction_pair.items():
         mc = MarchingCubesRenderer(cfg, device=dev)
@@ -698,25 +707,32 @@ def test_mc_and_blocks_card_vs_cpu(extraction_pair):
 
 
 def test_dual_contouring_card_vs_cpu(extraction_pair):
-    """Adaptive DC (through the node-id volume, device rows) and uniform
-    DC on the card: the CPU's counts, vertices and normals within the CPU
-    tests' bars (2e-6, 2e-4)."""
+    """Adaptive DC (through the node-id volume, device rows; unculled and
+    culled by a node mask that drops part of the tree) and uniform DC on
+    the card: the CPU's counts, vertices and normals within the CPU
+    tests' bars (2e-6, 2e-4); the node masks equal."""
     from ray_tracing_octrees_tpu_torch.core.octree import build_node_id_volume
     from ray_tracing_octrees_tpu_torch.ops import dual_contouring as dc
+    from ray_tracing_octrees_tpu_torch.render.frustum import visible_node_mask
 
-    outs = {}
+    outs, masks = {}, {}
     for dev, (g, tree) in extraction_pair.items():
-        outs[dev] = [
-            dc.adaptive_dual_contouring(
-                g, tree, node_id_vol=build_node_id_volume(tree),
-                tree_meta=dc.tree_host_meta(tree), device_out=True,
-                device=dev),
-            dc.dual_contour_uniform(g, 8192, 40000, device=dev)]
+        masks[dev] = visible_node_mask(tree, g.origin, g.voxel_size,
+                                       _cull_vp(16 / 9), CULL_MARGIN)
+        adaptive = lambda **kw: dc.adaptive_dual_contouring(
+            g, tree, node_id_vol=build_node_id_volume(tree),
+            tree_meta=dc.tree_host_meta(tree), device_out=True, device=dev,
+            **kw)
+        outs[dev] = [adaptive(), adaptive(node_mask=masks[dev]),
+                     dc.dual_contour_uniform(g, 8192, 40000, device=dev)]
+    assert torch.equal(masks["cuda"].cpu(), masks["cpu"])
+    assert 0 < int(masks["cpu"].sum()) < masks["cpu"].numel()
     for (gv, gn, gc), (cv, cn, cc) in zip(outs["cuda"], outs["cpu"]):
         assert int(gc) == int(cc) > 100
         c = int(cc)
         assert float((gv[:c].cpu() - cv[:c]).abs().max()) <= 2e-6
         assert float((gn[:c].cpu() - cn[:c]).abs().max()) <= 2e-4
+    assert int(outs["cpu"][1][2]) < int(outs["cpu"][0][2])
 
 
 def test_linear_tree_branches_on_card(extraction_pair):
@@ -729,6 +745,8 @@ def test_linear_tree_branches_on_card(extraction_pair):
     from ray_tracing_octrees_tpu_torch.models.octree_raytracer import (
         OctreeRayTracer,
     )
+    from ray_tracing_octrees_tpu_torch.config import EngineConfig
+    from ray_tracing_octrees_tpu_torch.models import volume_raycaster
     from ray_tracing_octrees_tpu_torch.models.volume_raycaster import (
         VolumeRaycastRenderer,
     )
@@ -736,17 +754,23 @@ def test_linear_tree_branches_on_card(extraction_pair):
 
     cam = Camera(theta=0.4, phi=1.1, radius=0.5)
     vp = (cam.get_proj(1.3) @ cam.get_view()).astype(np.float32)
-    tracers = {}
-    for dev, (g, tree) in extraction_pair.items():
-        rt = OctreeRayTracer(device=dev)
-        rt.set_octree(g, tree=tree)
-        rt.update_frustum(vp)
-        tracers[dev] = rt
-    assert tracers["cuda"].visible_count == tracers["cpu"].visible_count
-    for f in dataclasses.fields(tracers["cpu"].visible_tree):
-        assert torch.equal(getattr(tracers["cuda"].visible_tree,
-                                   f.name).cpu(),
-                           getattr(tracers["cpu"].visible_tree, f.name))
+    cull = EngineConfig()
+    cull = cull.replace(raytrace=dataclasses.replace(
+        cull.raytrace, frustum_margin=CULL_MARGIN))
+    for cfg, view_proj in ((EngineConfig(), vp), (cull, _cull_vp(1.3))):
+        tracers = {}
+        for dev, (g, tree) in extraction_pair.items():
+            rt = OctreeRayTracer(config=cfg, device=dev)
+            rt.set_octree(g, tree=tree)
+            rt.update_frustum(view_proj)
+            tracers[dev] = rt
+        assert tracers["cuda"].visible_count == tracers["cpu"].visible_count
+        for f in dataclasses.fields(tracers["cpu"].visible_tree):
+            assert torch.equal(getattr(tracers["cuda"].visible_tree,
+                                       f.name).cpu(),
+                               getattr(tracers["cpu"].visible_tree, f.name))
+    # the last pair culls part of the tree
+    assert tracers["cpu"].visible_count < extraction_pair["cpu"][1].num_nodes
     g, tree = extraction_pair["cuda"]
     r = VolumeRaycastRenderer(device="cuda").init(g)
     r.update_frustum_culling(cam, 1.3, tree=tree)
@@ -754,6 +778,12 @@ def test_linear_tree_branches_on_card(extraction_pair):
     rc = VolumeRaycastRenderer(device="cpu").init(cpu_g)
     rc.update_frustum_culling(cam, 1.3, tree=cpu_tree)
     assert torch.equal(r.textures.working.cpu(), rc.textures.working)
+    # the exact working volume at a margin that culls part of the tree
+    wv = {dev: volume_raycaster._working_volume_octree(
+        gd.occ, td, gd.origin, gd.voxel_size, _cull_vp(1.3), CULL_MARGIN)
+        for dev, (gd, td) in extraction_pair.items()}
+    assert torch.equal(wv["cuda"].cpu(), wv["cpu"])
+    assert 0 < int((wv["cpu"] > 0).sum()) < int((cpu_g.occ > 0).sum())
     kept, real = [], raymarch_sweep.warp_lookup_multi
 
     def keep(tables, lin):

@@ -261,7 +261,7 @@ def test_adaptive_dc_sphere64(adaptive_jax):
     lookups, the host metadata, and the device-out rows."""
     ref = adaptive_jax["sphere64"]
     tg = make_sphere_grid(64, device="cpu")
-    tree = build_linear_octree(tg.occ)
+    tree = build_linear_octree(tg.occ, device="cpu")
     plain = td.adaptive_dual_contouring(tg, tree, device="cpu")
     _assert_dc_close(ref["fans"], plain)
     assert plain[2] == int(ref["fans"][2]) == 14319

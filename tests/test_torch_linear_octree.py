@@ -73,9 +73,10 @@ def test_build_linear_octree_bitwise(trees, dims):
 
 
 def test_build_linear_octree_sphere_and_tensor_input():
-    """The 32^3 sphere from a tensor stays on its device (the CPU here)."""
+    """The 32^3 sphere from a tensor, on the device asked for (the CPU
+    here; with no device named the build goes to CUDA)."""
     g = make_sphere_grid(32, device="cpu")
-    ttree = to.build_linear_octree(g.occ)
+    ttree = to.build_linear_octree(g.occ, device="cpu")
     assert ttree.device == torch.device("cpu")
     _assert_trees_equal(jo.build_linear_octree(j_sphere(32).occ), ttree)
 
@@ -109,7 +110,8 @@ def test_find_node_vol_equals_find_node_on_sphere():
     """On every leaf corner of the 32^3 sphere and on seeded queries,
     some out of the cube: the lookup volume equals the binary search
     inside the cube and gives -1 outside it."""
-    ttree = to.build_linear_octree(make_sphere_grid(32, device="cpu").occ)
+    ttree = to.build_linear_octree(make_sphere_grid(32, device="cpu").occ,
+                                   device="cpu")
     vol = to.build_node_id_volume(ttree)
     np.testing.assert_array_equal(
         vol.numpy(), np.asarray(jo.build_node_id_volume(

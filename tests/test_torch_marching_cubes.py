@@ -169,7 +169,7 @@ def test_renderers_bitwise(margin):
 
     jg, tg = j_sphere(32), make_sphere_grid(32, device="cpu")
     jtree = j_tree(jg.occ)
-    ttree = build_linear_octree(tg.occ)
+    ttree = build_linear_octree(tg.occ, device="cpu")
     vp = _bench_like_vp(0.6)
     jcfg = JCfg().replace(extraction_frustum_margin=margin,
                           max_triangles=20000)

@@ -189,7 +189,7 @@ def test_octree_exact_working_volume_matches_oracle(radius):
     from ray_tracing_octrees_tpu_torch.render.frustum import visible_node_mask
 
     g = make_sphere_grid(32, device="cpu")
-    tree = build_linear_octree(g.occ)
+    tree = build_linear_octree(g.occ, device="cpu")
     cam = Camera(theta=0.5, phi=0.8, radius=radius)
     vp = (cam.get_proj(1.0) @ cam.get_view()).astype(np.float32)
     out = tvr._working_volume_octree(g.occ, tree, g.origin, g.voxel_size,
