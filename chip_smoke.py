@@ -152,11 +152,39 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               volume renderer's update_frustum_culling(tree=...) (voxels
               kept beside the 8^3-cell working volume's) and draw_fast at
               1920x1080 with warp_lookup_multi counted and held
-  27. lines   the kernels JSON line (each kernel's calls held on the
-              exact tracers', the volume frame's and the linear tree's
-              paths under "held_on_paths"; the extraction paths' launches,
-              all 0), the nvidia-smi line, and last the
-              {"ok": true, "device": {...}} line
+  27. mesh frame  the MC mesh frame of the JAX benchmarks' config 4:
+              prepare_mc_scene on the 128^3 sphere, render_mc_mesh_frame
+              at 1920x1088 (1024^2 texels, max_rounds 8, tol_texels 512)
+              over 3 windows of MESH_FRAMES distinct poses: ms (min and
+              median), Mrays/s at 2 rays a pixel, hit fraction, rounds,
+              unresolved, host syncs a frame, the idle share under
+              torch.profiler, stage ms by CUDA events, peak memory;
+              warp_lookup's count set to 0 before and read after (it must
+              launch), one frame's calls held bitwise against
+              warp_lookup_reference; lit, shadowed and background pixels;
+              then one window on the 256^3 sphere, its calls held too
+  28. lbvh    build_lbvh over the 128^3 sphere's 123352 MC triangles (the
+              JAX package's count), trace_lbvh at 480x270 (primary, then
+              shadow rays toward the light): ms, steps, syncs, hit
+              fraction; the texel trace at 256^2 against the oracle on its
+              own rays with tests/test_mesh_grid.py's bars
+  29. ingest  the seeded city of ingest/city.py in the Calgary CSV format
+              (2000 box buildings, bad lines included) through the native
+              runtime:
+              build, parse (equal to numpy's), assembly, voxelizer at 5 m;
+              voxelize_triangles_dense on the card equal to the native grid
+              bitwise, and load_csv_into_voxel_grid equal to both; then the
+              recentred city's mesh frame at 1920x1088 with its
+              warp_lookup calls held
+  30. mesh card vs CPU  on the 32^3 sphere at 128^2 texels, three poses
+              (one with the 2x2 footprint): trace_mc_mesh_texels' hit,
+              case, tri, t, normal and shadow, build_lbvh's arrays,
+              trace_lbvh's hit, tri and t, and a 128x128 frame bitwise
+  31. lines   the kernels JSON line (each kernel's calls held on the
+              exact tracers', the volume frame's, the linear tree's and
+              the mesh frames' paths under "held_on_paths"; the
+              extraction paths' launches, all 0), the nvidia-smi line,
+              and last the {"ok": true, "device": {...}} line
 
 Imports nothing of JAX or of the JAX package. Without a CUDA device, or
 without the port package beside it, it exits non-zero and prints no result.
@@ -1676,6 +1704,30 @@ def count_syncs(fn) -> int:
                for w in caught)
 
 
+def sync_sites(fn) -> dict:
+    """The Python lines at which one call of ``fn`` makes the host wait
+    for the card ("file:line" -> count), as :func:`count_syncs` finds
+    them."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "called a synchronizing CUDA operation" in str(w.message):
+            key = f"{os.path.basename(w.filename)}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
 def kernel_counts() -> dict:
     """Every kernel's launch count: the three frame kernels' counters and
     exp_warp.cu's forms summed."""
@@ -2154,6 +2206,435 @@ def linear_tree_phases(ctx: dict) -> dict:
                            f"{launches} launches, {n_lit} lit pixels")
     require_held("the volume frame after update_frustum_culling(tree=...)",
                  held)
+    return out
+
+
+# The MC mesh frame (the JAX benchmarks' config 4: benchmarks.py:158-256)
+MESH_W, MESH_H = 1920, 1088
+MESH_DIM = 128        # config 4's scene while sceneCache.bin is absent
+MESH_FRAMES = 10      # distinct poses a timed window, as config 4 times
+# the JAX package's MC triangle count on the 128^3 sphere (its
+# count_mc_triangles on the CPU)
+MESH_TRIANGLES = 123352
+LBVH_W, LBVH_H = 480, 270
+ORACLE_INTER = 256    # the texel trace held against the LBVH oracle
+# tests/test_mesh_grid.py:85-96's bars: hit mismatch, t rtol on shared
+# hits, share of shared hits within rtol 1e-4, unit-normal tolerance
+ORACLE_BARS = dict(mismatch=0.005, t_rtol=2e-3, t_close_share=0.995,
+                   unit=1e-4)
+# the seeded city's voxel size (m), as the Calgary ingest's
+CITY_VOXEL = 5.0
+
+
+def mesh_phases(ctx: dict) -> dict:
+    """Phases 27-30: the MC mesh frame of config 4 on the 128^3 sphere
+    (10 distinct poses a window, warp_lookup's calls held) and a window
+    on the 256^3 sphere; the LBVH oracle (build over the 128^3 sphere's
+    MC triangles, primary and shadow traces at 480x270, the texel trace
+    held to tests/test_mesh_grid.py's bars against it); ingest of the
+    seeded city (native parse, assembly and voxelizer; the dense
+    voxelizer on the card equal to the native grid) and its mesh frame;
+    card against CPU on the 32^3 sphere. Returns the record's section,
+    with warp_lookup's launches ("launches") and held calls ("held") by
+    path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tracing_octrees_tpu_torch.core.grid import (
+        building_center, make_sphere_grid, recenter_filled_voxels,
+    )
+    from ray_tracing_octrees_tpu_torch.ingest import csv_loader
+    from ray_tracing_octrees_tpu_torch.ingest.city import write_city_csv
+    from ray_tracing_octrees_tpu_torch.ingest import voxelize as ivox
+    from ray_tracing_octrees_tpu_torch.native import runtime
+    from ray_tracing_octrees_tpu_torch.ops.marching_cubes import (
+        count_mc_triangles, marching_cubes_grid,
+    )
+    from ray_tracing_octrees_tpu_torch.render.camera import (
+        Camera, generate_rays,
+    )
+    from ray_tracing_octrees_tpu_torch.trace import lbvh, mesh_grid
+    from ray_tracing_octrees_tpu_torch.trace import slab_sweep
+    from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
+
+    dev, smi, grid = ctx["dev"], ctx["smi"], ctx["grid"]
+    light_dir = tuple(-c for c in TO_LIGHT)
+    aspect = MESH_W / MESH_H
+    rec = {"card": smi}
+    out = {"launches": {}, "held": {"warp_lookup": {}}}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    placed = {}
+
+    def pose_of(g, i):
+        """Config 4's i-th pose around ``g`` (its extent and centre read
+        from the card once a grid, outside the frames)."""
+        if id(g) not in placed:
+            placed[id(g)] = (g, float((g.world_max - g.world_min).max()),
+                             building_center(g))
+        _, extent, center = placed[id(g)]
+        cam = Camera(theta=0.9 + 0.013 * i, phi=0.8 - 0.007 * i,
+                     radius=0.75 * extent)
+        cam.set_target(center)
+        return cam
+
+    def mframe(scene, cam, w=MESH_W, h=MESH_H, **kw):
+        return mesh_grid.render_mc_mesh_frame(
+            scene, cam.get_pos(), cam.get_view(), 45.0, w / h, w, h,
+            light_dir=light_dir, device=dev, **kw)
+
+    def held_frame(label, scene, cam):
+        """One frame with warp_lookup's count set to 0 before it and its
+        calls kept: (image, stats, launches, hold)."""
+        wk.warp_lookup.launches = 0
+        calls, restore = held_calls([(slab_sweep, "warp_lookup")])
+        try:
+            img, stats = mframe(scene, cam, with_stats=True)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        n = wk.warp_lookup.launches
+        h = {"warp_lookup": hold(calls["warp_lookup"],
+                                 wk.warp_lookup_reference)}
+        require_held(label, h)
+        if n < 1:
+            raise RuntimeError(f"{label}: warp_lookup did not launch")
+        return img, stats, n, h["warp_lookup"]
+
+    def classes_ok(label, img, need_shadow=True):
+        lit, shadowed, bg = frame_classes(img)
+        if (tuple(img.shape) != (MESH_H, MESH_W, 4)
+                or not bool(torch.isfinite(img).all()) or lit == 0
+                or bg == 0 or (need_shadow and shadowed == 0)):
+            raise RuntimeError(f"{label}: {tuple(img.shape)}, {lit} lit, "
+                               f"{shadowed} shadowed, {bg} background")
+        return dict(lit=lit, shadowed=shadowed, background=bg)
+
+    def stage_ms(scene, cam, frames: int = 3):
+        """Per-stage ms of the frame by CUDA events (mean of ``frames``)."""
+        acc = {}
+        for _ in range(frames):
+            torch.cuda.synchronize()
+            marks = [("start", torch.cuda.Event(enable_timing=True))]
+            marks[0][1].record()
+
+            def mark(name):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                marks.append((name, e))
+            setup, scal_np = mesh_grid._frame_setup(
+                scene, cam.get_pos(), cam.get_view(), 45.0, aspect,
+                light_dir, (1.0, 0.8, 0.6), (0.1, 0.1, 0.1))
+            mesh_grid._mesh_frame(scene, scal_np, setup, MESH_W, MESH_H,
+                                  1024, 1024, 8, 512, mark=mark)
+            torch.cuda.synchronize()
+            for (_, a), (name, b) in zip(marks, marks[1:]):
+                acc[name] = acc.get(name, 0.0) + a.elapsed_time(b) / frames
+        return acc
+
+    # 27. the mesh frame, config 4: the 128^3 sphere at 1920x1088
+    g128 = make_sphere_grid(MESH_DIM, device=dev)
+    scene, prep_ms = timed(lambda: mesh_grid.prepare_mc_scene(
+        g128.occ, g128.origin, g128.voxel_size, to_light=TO_LIGHT,
+        device=dev))
+    _, first_ms = timed(lambda: mframe(scene, pose_of(g128, 0)))
+    img, stats, n_held, h = held_frame("the mesh frame", scene,
+                                       pose_of(g128, 1))
+    cls = classes_ok("the mesh frame", img)
+    hit_frac = float((img[..., :3].amax(-1) > 0).float().mean())
+    wk.warp_lookup.launches = 0
+    wins = []
+    for _ in range(3):
+        t = time.perf_counter()
+        for i in range(1, MESH_FRAMES + 1):
+            mframe(scene, pose_of(g128, i))
+        torch.cuda.synchronize()
+        wins.append((time.perf_counter() - t) / MESH_FRAMES * 1e3)
+    n_win = wk.warp_lookup.launches
+    if n_win < 3 * MESH_FRAMES:
+        raise RuntimeError(f"warp_lookup launched {n_win} times in "
+                           f"{3 * MESH_FRAMES} mesh frames")
+    out["launches"]["mesh frame 128^3 (phase 27)"] = {
+        "warp_lookup": n_held + n_win}
+    out["held"]["warp_lookup"]["mesh frame 128^3 (phase 27)"] = h
+    cam2 = pose_of(g128, 2)
+    sites = sync_sites(lambda: mframe(scene, cam2))
+    syncs = sum(sites.values())
+    wall, per = profiled(lambda: mframe(scene, pose_of(g128, 3)), 5)
+    busy = sum(per.values())
+    stages = stage_ms(scene, pose_of(g128, 4))
+    torch.cuda.reset_peak_memory_stats()
+    mframe(scene, pose_of(g128, 5))
+    peak = torch.cuda.max_memory_allocated()
+    ms_min, ms_med = min(wins), float(np.median(wins))
+    setup = mesh_grid._scene_sweep_setup(scene, pose_of(g128, 1).get_pos(),
+                                         pose_of(g128, 1).get_view(), 45.0,
+                                         aspect)
+    rec["frame_128"] = dict(
+        scene_ms=prep_ms, first_frame_ms=first_ms, ms_windows=wins,
+        ms_min=ms_min, ms_median=ms_med,
+        mrays_per_s=MESH_W * MESH_H * 2 / (ms_min / 1e3) / 1e6,
+        hit_fraction=hit_frac, classes=cls, rounds=stats["rounds"],
+        unresolved=stats["unresolved"], hist=stats["hist"],
+        overflow=stats["overflow"], host_syncs=syncs, sync_sites=sites,
+        host_syncs_counted_by_the_tracer=stats["syncs"],
+        profiled_wall_ms=wall, device_busy_ms=busy,
+        idle_share=max(0.0, 1.0 - busy / wall) if per else None,
+        stage_ms=stages, peak_bytes=peak, sweep_axis=setup[0],
+        flip=setup[1], sizes=list(setup[2]), kcells=setup[6],
+        case_sw=list(setup[3].shape), launches_held=n_held,
+        launches_windows=n_win, held=h)
+    log("mesh frame", f"[{smi}] 128^3 sphere, 1920x1088, 1024^2 texels, "
+        f"axis {setup[0]} flip {setup[1]} S,A,B {setup[2]} kcells "
+        f"{setup[6]}: {ms_min:.3f} ms min, {ms_med:.3f} median of 3 windows "
+        f"of {MESH_FRAMES} poses ({rec['frame_128']['mrays_per_s']:.1f} "
+        f"Mrays/s at 2 rays a pixel); scene {prep_ms:.1f} ms, first frame "
+        f"{first_ms:.1f} ms; hit fraction {hit_frac:.4f}, rounds "
+        f"{stats['rounds']}, unresolved {stats['unresolved']}, hist "
+        f"{stats['hist']}; host syncs {syncs} a frame ({sites}); idle "
+        f"{rec['frame_128']['idle_share']}; peak {peak / 2 ** 30:.2f} GiB; "
+        f"stages " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f" ms; warp_lookup {n_held} + {n_win} launches, held "
+        f"{h['calls']} calls bitwise")
+
+    # ... and one window on the 256^3 sphere, the scene of the other phases
+    scene256, prep256 = timed(lambda: mesh_grid.prepare_mc_scene(
+        grid.occ, grid.origin, grid.voxel_size, to_light=TO_LIGHT,
+        device=dev))
+    _, first256 = timed(lambda: mframe(scene256, pose_of(grid, 0)))
+    img256, st256, n256, h256 = held_frame("the 256^3 mesh frame", scene256,
+                                           pose_of(grid, 0))
+    cls256 = classes_ok("the 256^3 mesh frame", img256)
+    wk.warp_lookup.launches = 0
+    t = time.perf_counter()
+    for i in range(1, MESH_FRAMES + 1):
+        mframe(scene256, pose_of(grid, i))
+    torch.cuda.synchronize()
+    ms256 = (time.perf_counter() - t) / MESH_FRAMES * 1e3
+    n256 += wk.warp_lookup.launches
+    out["launches"]["mesh frame 256^3 (phase 27)"] = {"warp_lookup": n256}
+    out["held"]["warp_lookup"]["mesh frame 256^3 (phase 27)"] = h256
+    cam2 = pose_of(grid, 2)
+    syncs256 = count_syncs(lambda: mframe(scene256, cam2))
+    rec["frame_256"] = dict(
+        scene_ms=prep256, first_frame_ms=first256, ms=ms256,
+        mrays_per_s=MESH_W * MESH_H * 2 / (ms256 / 1e3) / 1e6,
+        hit_fraction=float((img256[..., :3].amax(-1) > 0).float().mean()),
+        classes=cls256, rounds=st256["rounds"],
+        unresolved=st256["unresolved"], hist=st256["hist"],
+        host_syncs=syncs256, launches=n256, held=h256)
+    log("mesh frame", f"[{smi}] 256^3 sphere: {ms256:.3f} ms a frame (one "
+        f"window of {MESH_FRAMES} poses, "
+        f"{rec['frame_256']['mrays_per_s']:.1f} Mrays/s); scene "
+        f"{prep256:.1f} ms; rounds {st256['rounds']}, unresolved "
+        f"{st256['unresolved']}, syncs {syncs256}; warp_lookup {n256} "
+        f"launches, held bitwise")
+
+    # 28. the LBVH oracle over the 128^3 sphere's MC triangles
+    total = int(count_mc_triangles(g128))
+    verts, _, count = marching_cubes_grid(g128, max_triangles=total,
+                                          device=dev)
+    n_tris = int(count)
+    if n_tris != MESH_TRIANGLES:
+        raise RuntimeError(f"MC gave {n_tris} triangles on the 128^3 sphere, "
+                           f"the JAX package {MESH_TRIANGLES}")
+    tris = verts[:n_tris]
+    build_ms = []
+    for _ in range(3):
+        bvh, ms = timed(lambda: lbvh.build_lbvh(tris, device=dev))
+        build_ms.append(ms)
+    cam = pose_of(g128, 0)
+    o, d = generate_rays(LBVH_W, LBVH_H, cam.get_pos(), cam.get_view(), 45.0,
+                         LBVH_W / LBVH_H, device=dev)
+    prim, prim_ms = timed(lambda: lbvh.trace_lbvh(bvh, o, d, max_steps=4096))
+    l = np.asarray(TO_LIGHT, np.float32)
+    l = l / np.linalg.norm(l)
+    so = prim["point"] + prim["normal"] * 1e-3
+    sd = torch.as_tensor(l, device=dev)[None, :].expand_as(so).contiguous()
+    shad, shad_ms = timed(lambda: lbvh.trace_lbvh(bvh, so, sd,
+                                                  max_steps=4096))
+    ph = prim["hit"]
+    lbvh_syncs = count_syncs(lambda: lbvh.trace_lbvh(bvh, o, d,
+                                                     max_steps=4096))
+    # the texel trace against the oracle on its own rays
+    tex = mesh_grid.trace_mc_mesh_texels(
+        scene, cam.get_pos(), cam.get_view(), 45.0, aspect, ORACLE_INTER,
+        ORACLE_INTER, max_rounds=64, tol_texels=0, device=dev)
+    orc, orc_ms = timed(lambda: lbvh.trace_lbvh(bvh, tex["ray_o"],
+                                                tex["ray_d"], max_steps=4096))
+    o_hit = orc["hit"]
+    o_t = orc["t"] * tex["ray_d"].double().norm(dim=-1).float()
+    both = tex["hit"] & o_hit
+    mismatch = float((tex["hit"] != o_hit).float().mean())
+    rel = ((tex["t"] - o_t).abs() / o_t.abs().clamp(min=1e-30))[both]
+    close = float((rel <= 1e-4).float().mean())
+    unit = float((tex["normal"][both].norm(dim=-1) - 1.0).abs().max())
+    bars = dict(mismatch=mismatch, t_rel_max=float(rel.max()),
+                t_close_share=close, normal_unit_err=unit,
+                unresolved=tex["unresolved"], rounds=tex["rounds"],
+                shared_hits=int(both.sum()))
+    if not (mismatch < ORACLE_BARS["mismatch"]
+            and bars["t_rel_max"] <= ORACLE_BARS["t_rtol"]
+            and close > ORACLE_BARS["t_close_share"]
+            and unit <= ORACLE_BARS["unit"] and tex["unresolved"] == 0):
+        raise RuntimeError(f"the texel trace against the LBVH oracle: {bars}")
+    rec["lbvh"] = dict(
+        triangles=n_tris, build_ms=build_ms, build_ms_min=min(build_ms),
+        primary_ms=prim_ms, primary_steps=prim["steps"],
+        primary_syncs=prim["syncs"], primary_syncs_counted=lbvh_syncs,
+        primary_compactions=prim["compactions"],
+        primary_hit_fraction=float(ph.float().mean()),
+        shadow_ms=shad_ms, shadow_steps=shad["steps"],
+        shadow_syncs=shad["syncs"],
+        shadow_occluded_share_of_hits=float(
+            (shad["hit"] & ph).float().sum() / ph.float().sum().clamp(
+                min=1)),
+        oracle_ms_texels=orc_ms, oracle_steps_texels=orc["steps"],
+        texel_vs_oracle=bars, bars=ORACLE_BARS)
+    log("lbvh", f"[{smi}] {n_tris} triangles: build {min(build_ms):.1f} ms "
+        f"(min of 3: {', '.join(f'{v:.1f}' for v in build_ms)}); primary "
+        f"{LBVH_W}x{LBVH_H} {prim_ms:.1f} ms, {prim['steps']} steps, "
+        f"{prim['syncs']} syncs ({lbvh_syncs} counted), hit fraction "
+        f"{rec['lbvh']['primary_hit_fraction']:.4f}; shadow {shad_ms:.1f} "
+        f"ms, {shad['steps']} steps; texels {ORACLE_INTER}^2 against the "
+        f"oracle: {bars}")
+
+    # 29. ingest: the seeded city through the native runtime, the dense
+    # voxelizer on the card against it, then its mesh frame
+    with tempfile.TemporaryDirectory() as tmp:
+        vp, fp, city = write_city_csv(tmp)
+        _, build_native_ms = timed(runtime._load)
+        (verts_c, faces_c), parse_ms = timed(lambda: (
+            runtime.parse_csv_file(vp, 8, 8), runtime.parse_csv_file(fp, 4,
+                                                                     4)))
+        v_np = csv_loader.load_csv_vertices(vp)
+        f_np = csv_loader.load_csv_faces(fp)
+        if not (np.array_equal(v_np, verts_c)
+                and np.array_equal(f_np, faces_c)):
+            raise RuntimeError("native CSV parse differs from numpy's")
+        (tris_c, kept), asm_ms = timed(
+            lambda: runtime.assemble_triangles_native(verts_c, faces_c))
+        g_nat, native_ms = timed(lambda: runtime.voxelize_triangles(
+            tris_c, CITY_VOXEL, device=dev))
+        dense_ms = []
+        for _ in range(3):
+            g_den, ms = timed(lambda: ivox.voxelize_triangles_dense(
+                tris_c, CITY_VOXEL, device=dev))
+            dense_ms.append(ms)
+        g_e2e, e2e_ms = timed(lambda: ivox.load_csv_into_voxel_grid(
+            vp, fp, CITY_VOXEL, use_native=True, device=dev))
+    same = (torch.equal(g_nat.occ, g_den.occ)
+            and torch.equal(g_nat.origin, g_den.origin)
+            and torch.equal(g_nat.voxel_size, g_den.voxel_size)
+            and torch.equal(g_e2e.occ, g_nat.occ))
+    if not same:
+        raise RuntimeError("the dense voxelizer on the card differs from "
+                           "the native grid")
+    filled = int((g_nat.occ > 0).sum())
+    city_grid = recenter_filled_voxels(g_nat)
+    scene_c, prep_c = timed(lambda: mesh_grid.prepare_mc_scene(
+        city_grid.occ, city_grid.origin, city_grid.voxel_size,
+        to_light=TO_LIGHT, device=dev))
+    ccam = pose_of(city_grid, 0)
+    _, first_c = timed(lambda: mframe(scene_c, ccam))
+    img_c, st_c, n_c, h_c = held_frame("the city mesh frame", scene_c, ccam)
+    cls_c = classes_ok("the city mesh frame", img_c, need_shadow=False)
+    wk.warp_lookup.launches = 0
+    _, frame_c = timed(lambda: [mframe(scene_c, pose_of(city_grid, i))
+                                for i in range(1, 4)])
+    n_c += wk.warp_lookup.launches
+    out["launches"]["city mesh frame (phase 29)"] = {"warp_lookup": n_c}
+    out["held"]["warp_lookup"]["city mesh frame (phase 29)"] = h_c
+    setup_c = mesh_grid._scene_sweep_setup(scene_c, ccam.get_pos(),
+                                           ccam.get_view(), 45.0, aspect)
+    rec["city"] = dict(
+        csv=city, voxel_size=CITY_VOXEL, dims_xyz=list(g_nat.dims_xyz),
+        filled=filled, vertices=int(verts_c.shape[0]),
+        faces=int(faces_c.shape[0]), triangles=int(tris_c.shape[0]),
+        faces_dropped=int((~kept).sum()), native_build_ms=build_native_ms,
+        native_build=dict(runtime.BUILD_INFO),
+        parse_ms=parse_ms, assembly_ms=asm_ms, native_voxelize_ms=native_ms,
+        dense_voxelize_ms=dense_ms, dense_voxelize_ms_min=min(dense_ms),
+        load_csv_into_voxel_grid_ms=e2e_ms, dense_equals_native=same,
+        scene_ms=prep_c, first_frame_ms=first_c, frame_ms=frame_c / 3,
+        hit_fraction=float((img_c[..., :3].amax(-1) > 0).float().mean()),
+        classes=cls_c, rounds=st_c["rounds"], unresolved=st_c["unresolved"],
+        sweep_axis=setup_c[0], sizes=list(setup_c[2]), kcells=setup_c[6],
+        launches=n_c, held=h_c)
+    log("ingest", f"[{smi}] city of {city['buildings']} buildings "
+        f"({city['vertex_lines']} vertex and {city['face_lines']} face "
+        f"lines, bad ones included): native build {build_native_ms:.0f} "
+        f"ms ({runtime.BUILD_INFO.get('compiler')}, "
+        f"{len(runtime.BUILD_INFO.get('failed', []))} compilers failed "
+        f"first), parse {parse_ms:.1f} ms, assembly {asm_ms:.1f} ms "
+        f"({int(tris_c.shape[0])} triangles, {int((~kept).sum())} dropped), "
+        f"native voxelizer {native_ms:.1f} ms, dense on the card "
+        f"{min(dense_ms):.1f} ms (min of 3), equal bitwise; the whole "
+        f"load {e2e_ms:.1f} ms; grid {g_nat.dims_xyz} at {CITY_VOXEL} m, "
+        f"{filled} filled; its mesh frame: scene {prep_c:.1f} ms, axis "
+        f"{setup_c[0]} S,A,B {setup_c[2]} kcells {setup_c[6]}, "
+        f"{frame_c / 3:.2f} ms a frame, rounds {st_c['rounds']}, hit "
+        f"fraction {rec['city']['hit_fraction']:.4f}; warp_lookup {n_c} "
+        f"launches, held bitwise")
+
+    # 30. card against CPU on the 32^3 sphere, one pose with kcells 4
+    g_cpu = make_sphere_grid(32, device="cpu")
+    s_cpu = mesh_grid.prepare_mc_scene(g_cpu.occ, g_cpu.origin,
+                                       g_cpu.voxel_size, to_light=TO_LIGHT,
+                                       device="cpu")
+    s_dev = mesh_grid.prepare_mc_scene(g_cpu.occ, g_cpu.origin,
+                                       g_cpu.voxel_size, to_light=TO_LIGHT,
+                                       device=dev)
+    vs_cpu = marching_cubes_grid(g_cpu, int(count_mc_triangles(g_cpu)),
+                                 device="cpu")
+    t_cpu = vs_cpu[0][: int(vs_cpu[2])]
+    b_cpu = lbvh.build_lbvh(t_cpu, device="cpu")
+    b_dev = lbvh.build_lbvh(t_cpu.to(dev), device=dev)
+    eq = lambda a, b: bool(torch.equal(a.cpu(), b.cpu()))
+    card = {"build_lbvh": all(eq(getattr(b_cpu, f.name), getattr(b_dev,
+                                                                 f.name))
+                              for f in dataclasses.fields(lbvh.LBVH))}
+    kc_seen = []
+    for k, p in enumerate(((0.5, 0.3), (1.4, 0.55), (2.3, 0.8))):
+        c = Camera(theta=p[0], phi=p[1], radius=1.4)
+        args = (c.get_pos(), c.get_view(), 45.0, 1.0, 128, 128)
+        a = mesh_grid.trace_mc_mesh_texels(s_cpu, *args, max_rounds=24,
+                                           device="cpu")
+        b = mesh_grid.trace_mc_mesh_texels(s_dev, *args, max_rounds=24,
+                                           device=dev)
+        kc_seen.append(mesh_grid._scene_sweep_setup(s_cpu, c.get_pos(),
+                                                    c.get_view(), 45.0,
+                                                    1.0)[6])
+        card[f"texels pose {k}"] = all(eq(a[f], b[f]) for f in (
+            "hit", "case", "tri", "t", "normal", "shadow")) and \
+            a["rounds"] == b["rounds"]
+        if k == 0:
+            ra = lbvh.trace_lbvh(b_cpu, a["ray_o"], a["ray_d"], 4096)
+            rb = lbvh.trace_lbvh(b_dev, b["ray_o"], b["ray_d"], 4096)
+            card["trace_lbvh"] = all(eq(ra[f], rb[f])
+                                     for f in ("hit", "tri", "t"))
+            ia = mesh_grid.render_mc_mesh_frame(
+                s_cpu, c.get_pos(), c.get_view(), 45.0, 1.0, 128, 128,
+                light_dir=light_dir, inter_h=128, inter_w=128,
+                device="cpu")
+            ib = mesh_grid.render_mc_mesh_frame(
+                s_dev, c.get_pos(), c.get_view(), 45.0, 1.0, 128, 128,
+                light_dir=light_dir, inter_h=128, inter_w=128, device=dev)
+            card["frame"] = eq(ia, ib)
+    if 4 not in kc_seen or not all(card.values()):
+        raise RuntimeError(f"mesh card vs CPU: {card}, kcells {kc_seen}")
+    rec["card_vs_cpu"] = dict(card, kcells=kc_seen)
+    log("mesh card vs CPU", f"[{smi}] 32^3 sphere at 128^2 texels, three "
+        f"poses (kcells {kc_seen}): {card}")
+    out["mesh"] = rec
     return out
 
 
@@ -2734,6 +3215,12 @@ def main() -> int:
         exact["launches"][path] = counts
     for k, by in branches.pop("held").items():
         exact["held"].setdefault(k, {}).update(by)
+    # 27-30. the mesh frame, the LBVH oracle, ingest, card vs CPU
+    mesh = mesh_phases(dict(dev=dev, smi=smi, grid=grid))
+    for path, counts in mesh.pop("launches").items():
+        exact["launches"][path] = counts
+    for k, by in mesh.pop("held").items():
+        exact["held"].setdefault(k, {}).update(by)
 
     by_path = {
         "warp_frame": {"fast frame (phase 4)": launches["warp_frame"]},
@@ -2749,7 +3236,7 @@ def main() -> int:
         if k in by_path:
             by_path[k]["extraction pipelines (phase 24)"] = v
 
-    # 27. lines
+    # 31. lines
     held = exact["held"]
     record = {"kernels": [{
         "name": "warp_frame",
@@ -2845,6 +3332,7 @@ def main() -> int:
         "extraction": dict(extraction, launches_on_extraction_paths=extraction[
             "extraction"]["kernel_launches"]),
         "linear_tree_branches": branches,
+        "mesh": mesh["mesh"],
         "card": smi}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

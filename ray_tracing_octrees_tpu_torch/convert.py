@@ -3,9 +3,9 @@
 This system has no weights: what crosses between the JAX reference and
 the port is the scene, an occupancy grid with its world placement, and
 the structures built from it, such as the occupancy pyramid, the linear
-octree and the volume renderer's textures (after carving or indirect
-light, its whole state). These helpers move them through numpy, which
-both packages read.
+octree, the volume renderer's textures (after carving or indirect
+light, its whole state), the triangle LBVH and the traceable MC mesh
+scene. These helpers move them through numpy, which both packages read.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from ray_tracing_octrees_tpu_torch.core.grid import VoxelGrid
 from ray_tracing_octrees_tpu_torch.core.octree import (
     LinearOctree, OccupancyPyramid,
 )
+from ray_tracing_octrees_tpu_torch.trace.lbvh import LBVH
+from ray_tracing_octrees_tpu_torch.trace.mesh_grid import MCMeshScene
 from ray_tracing_octrees_tpu_torch.trace.raymarch import VolumeTextures
 
 
@@ -100,3 +102,48 @@ def textures_to_numpy(tex: VolumeTextures) -> dict:
     return {f.name: [as_np(m) for m in tex.vol_mips] if f.name == "vol_mips"
             else as_np(getattr(tex, f.name))
             for f in dataclasses.fields(VolumeTextures)}
+
+
+def lbvh_from_numpy(src, device: DeviceLike = None) -> LBVH:
+    """LBVH on ``device`` from ``src``: a mapping of its field names to
+    arrays, or any object with those attributes, such as the JAX
+    package's ``LBVH``. Vertices and boxes become f32, the rest int32."""
+    dev = resolve_device(device)
+    get = _getter(src)
+    as_t = lambda name: torch.as_tensor(np.array(
+        get(name), np.float32 if name in ("tri_verts", "aabb_min",
+                                          "aabb_max") else np.int32),
+        device=dev)
+    return LBVH(**{f.name: as_t(f.name) for f in dataclasses.fields(LBVH)})
+
+
+def lbvh_to_numpy(bvh: LBVH) -> dict:
+    """The fields of ``bvh`` as numpy arrays, by name."""
+    return {f.name: getattr(bvh, f.name).cpu().numpy()
+            for f in dataclasses.fields(LBVH)}
+
+
+def mc_scene_from_numpy(src, device: DeviceLike = None) -> MCMeshScene:
+    """MCMeshScene on ``device`` from ``src``: a mapping of ``case_vol``,
+    ``shadow_cell`` (None for a scene without shadows), ``origin`` and
+    ``voxel_size``, or any object with those attributes, such as the JAX
+    package's ``MCMeshScene``."""
+    dev = resolve_device(device)
+    get = _getter(src)
+    as_t = lambda a: None if a is None else torch.as_tensor(
+        np.array(a, np.float32), device=dev)
+    return MCMeshScene(case_vol=as_t(get("case_vol")),
+                       shadow_cell=as_t(get("shadow_cell")),
+                       origin=np.array(get("origin"), np.float32),
+                       voxel_size=float(get("voxel_size")))
+
+
+def mc_scene_to_numpy(scene: MCMeshScene) -> dict:
+    """``case_vol``, ``shadow_cell`` (or None), ``origin`` and
+    ``voxel_size`` as numpy values, by name."""
+    as_np = lambda t: None if t is None else t.cpu().numpy().astype(
+        np.float32)
+    return dict(case_vol=as_np(scene.case_vol),
+                shadow_cell=as_np(scene.shadow_cell),
+                origin=np.asarray(scene.origin, np.float32),
+                voxel_size=scene.voxel_size)

@@ -6,8 +6,10 @@ form, ``warp_lookup`` in both forms and ``warp_lookup_multi``
 ``ray_tracing_octrees_tpu_torch/tools``; and the exact tracers on the
 card against the CPU (the DDA, the sweep-exact frame and its dead test
 through ``warp_lookup``, ``OctreeRayTracer``'s four routes); and the
-linear octree, the extraction pipelines (plain PyTorch) and the linear
-tree's branches on the card against the CPU.
+linear octree, the extraction pipelines (plain PyTorch), the linear
+tree's branches, the MC mesh tracer and its frame (``warp_lookup`` on
+its colours), the LBVH and the dense voxelizer on the card against the
+CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (a
 CUDA kernel has no CPU mode). The file imports nothing of JAX, so it also
@@ -802,3 +804,112 @@ def test_linear_tree_branches_on_card(extraction_pair):
     (tables, lin, out), = kept
     assert torch.equal(out, warp_kernel.warp_lookup_multi_reference(tables,
                                                                     lin))
+
+
+# -- the MC mesh frame, the LBVH oracle and ingest on the card ------------
+
+@pytest.fixture(scope="module")
+def mesh_pair():
+    """The 32^3 sphere's MC scene and MC triangles on the card and the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ray_tracing_octrees_tpu_torch.ops.marching_cubes import (
+        count_mc_triangles, marching_cubes_grid,
+    )
+    from ray_tracing_octrees_tpu_torch.trace import mesh_grid
+
+    torch.set_num_threads(2)
+    g = make_sphere_grid(32, device="cpu")
+    verts, _, count = marching_cubes_grid(g, int(count_mc_triangles(g)),
+                                          device="cpu")
+    return {dev: (mesh_grid.prepare_mc_scene(g.occ, g.origin, g.voxel_size,
+                                             to_light=TO_LIGHT, device=dev),
+                  verts[: int(count)].to(dev))
+            for dev in ("cpu", "cuda")}
+
+
+@pytest.mark.parametrize("pose", [(0.5, 0.3), (1.4, 0.55), (2.3, 0.8)])
+def test_mesh_texel_trace_card_vs_cpu(mesh_pair, pose):
+    """trace_mc_mesh_texels at 128^2 (the second pose with the 2x2
+    footprint): hit, case, triangle, t, normal and shadow bitwise."""
+    from ray_tracing_octrees_tpu_torch.trace import mesh_grid
+
+    cam = Camera(theta=pose[0], phi=pose[1], radius=1.4)
+    res = {dev: mesh_grid.trace_mc_mesh_texels(
+        scene, cam.get_pos(), cam.get_view(), 45.0, 1.0, 128, 128,
+        max_rounds=24, device=dev) for dev, (scene, _) in mesh_pair.items()}
+    assert res["cuda"]["rounds"] == res["cpu"]["rounds"]
+    for f in ("hit", "case", "tri", "t", "normal", "shadow"):
+        assert torch.equal(res["cuda"][f].cpu(), res["cpu"][f]), f
+
+
+def test_lbvh_card_vs_cpu(mesh_pair):
+    """build_lbvh's arrays and trace_lbvh's hit, triangle and t bitwise."""
+    import dataclasses
+
+    from ray_tracing_octrees_tpu_torch.trace import lbvh
+
+    bvh = {dev: lbvh.build_lbvh(tris, device=dev)
+           for dev, (_, tris) in mesh_pair.items()}
+    for f in dataclasses.fields(lbvh.LBVH):
+        assert torch.equal(getattr(bvh["cuda"], f.name).cpu(),
+                           getattr(bvh["cpu"], f.name)), f.name
+    rng = np.random.default_rng(29)
+    o = torch.as_tensor((rng.random((4000, 3)) - 0.5).astype(np.float32) * 4)
+    d = torch.as_tensor((rng.random((4000, 3)) - 0.5).astype(np.float32)) - o
+    d = d / d.norm(dim=-1, keepdim=True)
+    rc = lbvh.trace_lbvh(bvh["cpu"], o, d, 4096)
+    rg = lbvh.trace_lbvh(bvh["cuda"], o.cuda(), d.cuda(), 4096)
+    for f in ("hit", "tri", "t"):
+        assert torch.equal(rg[f].cpu(), rc[f]), f
+
+
+def test_mesh_frame_lookup_held_on_card(mesh_pair):
+    """render_mc_mesh_frame launches warp_lookup on its packed colours,
+    each call bitwise its plain version, and its image equals the CPU's."""
+    from ray_tracing_octrees_tpu_torch.trace import mesh_grid
+
+    cam = Camera(theta=0.7, phi=0.5, radius=1.3)
+    kept, real = [], slab_sweep.warp_lookup
+
+    def keep(table, lin):
+        out = real(table, lin)
+        kept.append((table, lin, out.clone()))
+        return out
+
+    imgs = {}
+    slab_sweep.warp_lookup = keep
+    try:
+        for dev, (scene, _) in mesh_pair.items():
+            before = warp_kernel.warp_lookup.launches
+            imgs[dev] = mesh_grid.render_mc_mesh_frame(
+                scene, cam.get_pos(), cam.get_view(), 45.0, 16 / 9, 320, 180,
+                light_dir=tuple(-c for c in TO_LIGHT), inter_h=256,
+                inter_w=256, device=dev)
+            launched = warp_kernel.warp_lookup.launches - before
+            assert launched == (1 if dev == "cuda" else 0)
+    finally:
+        slab_sweep.warp_lookup = real
+    table, lin, out = kept[-1]
+    assert table.is_cuda
+    assert torch.equal(out, warp_kernel.warp_lookup_reference(table, lin))
+    assert torch.equal(imgs["cuda"].cpu(), imgs["cpu"])
+
+
+def test_dense_voxelizer_on_card_equals_native():
+    """The city-shaped seeded mesh: the dense voxelizer on the card equals
+    the native library's grid and the numpy one's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ray_tracing_octrees_tpu_torch.ingest import voxelize
+    from ray_tracing_octrees_tpu_torch.native import runtime
+
+    rng = np.random.default_rng(31)
+    tris = (rng.random((400, 1, 3)) * 200
+            + (rng.random((400, 3, 3)) - 0.5) * 30)
+    dense = voxelize.voxelize_triangles_dense(tris, 2.5, device="cuda")
+    host = voxelize.voxelize_triangles(tris, 2.5, device="cpu")
+    assert torch.equal(dense.occ.cpu(), host.occ)
+    assert torch.equal(dense.origin.cpu(), host.origin)
+    nat = runtime.voxelize_triangles(tris, 2.5, device="cpu")
+    assert torch.equal(dense.occ.cpu(), nat.occ)

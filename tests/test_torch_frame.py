@@ -229,6 +229,7 @@ def _entry_points():
         "prepare_volume_scene": lambda: _volume_entry("prepare_volume_scene"),
         "render_volume_frame": lambda: _volume_entry("render_volume_frame"),
         **_extraction_entry_points(),
+        **_mesh_ingest_entry_points(),
         **{f"tools.{name}.run": _driver_run(name) for name in (
             "exp_onehot_warp", "exp_warp_ablate", "exp_warp_tune",
             "exp_warp_tune2", "exp_warp_kernel", "exp_warp2pass")},
@@ -266,6 +267,48 @@ def _extraction_entry_points():
             g(), 64, 256),
         "adaptive_dual_contouring": lambda:
             dual_contouring.adaptive_dual_contouring(g(), tree()),
+    }
+
+
+def _mesh_ingest_entry_points():
+    """The mesh tracer's, the LBVH's and ingest's entry points, called
+    with no device argument on inputs built on the CPU."""
+    from ray_tracing_octrees_tpu_torch import convert
+    from ray_tracing_octrees_tpu_torch.ingest import voxelize
+    from ray_tracing_octrees_tpu_torch.native import runtime
+    from ray_tracing_octrees_tpu_torch.render import camera
+    from ray_tracing_octrees_tpu_torch.trace import lbvh, mesh_grid
+
+    occ = np.zeros((8, 8, 8), np.uint8)
+    occ[2:6, 3:6, 2:5] = 1
+    tris = np.array([[[0.0, 0.0, 5.0], [10.0, 0.0, 5.0], [0.0, 10.0, 5.0]],
+                     [[10.0, 0.0, 5.0], [10.0, 10.0, 5.0], [0.0, 10.0, 5.0]]],
+                    np.float32)
+    cam = camera.Camera(theta=0.4, phi=0.8, radius=2.0)
+    scene = lambda: mesh_grid.prepare_mc_scene(occ, (-0.5,) * 3, 1 / 8,
+                                               device="cpu")
+    return {
+        "build_lbvh": lambda: lbvh.build_lbvh(tris),
+        "lbvh_from_numpy": lambda: convert.lbvh_from_numpy(
+            convert.lbvh_to_numpy(lbvh.build_lbvh(tris, device="cpu"))),
+        "case_triangle_table": lambda: mesh_grid.case_triangle_table(),
+        "prepare_mc_scene": lambda: mesh_grid.prepare_mc_scene(
+            occ, (-0.5,) * 3, 1 / 8),
+        "mc_scene_from_numpy": lambda: convert.mc_scene_from_numpy(
+            convert.mc_scene_to_numpy(scene())),
+        "trace_mc_mesh_texels": lambda: mesh_grid.trace_mc_mesh_texels(
+            scene(), cam.get_pos(), cam.get_view(), inter_h=16, inter_w=16),
+        "render_mc_mesh_frame": lambda: mesh_grid.render_mc_mesh_frame(
+            scene(), cam.get_pos(), cam.get_view(), 45.0, 1.0, 16, 16,
+            inter_h=16, inter_w=16),
+        "voxelize_triangles": lambda: voxelize.voxelize_triangles(tris, 1.0),
+        "voxelize_triangles_dense": lambda: voxelize.voxelize_triangles_dense(
+            tris, 1.0),
+        "load_csv_into_voxel_grid": lambda: voxelize.load_csv_into_voxel_grid(
+            "verts.csv", "faces.csv", use_native=False),
+        "native.voxelize_triangles": lambda: runtime.voxelize_triangles(
+            tris, 1.0),
+        "native.load_grid": lambda: runtime.load_grid("unused.bin"),
     }
 
 
@@ -326,36 +369,14 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch, entry, tmp_path):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys; import ray_tracing_octrees_tpu_torch.trace.slab_sweep, "
-            "ray_tracing_octrees_tpu_torch.core.cache, "
-            "ray_tracing_octrees_tpu_torch.convert, "
-            "ray_tracing_octrees_tpu_torch.trace.fmad_check, "
-            "ray_tracing_octrees_tpu_torch.trace.fast_exact, "
-            "ray_tracing_octrees_tpu_torch.trace.octree_trace, "
-            "ray_tracing_octrees_tpu_torch.tools.cases, "
-            "ray_tracing_octrees_tpu_torch.tools.exp_warp2pass, "
-            "ray_tracing_octrees_tpu_torch.tools.exp_warp_tune2, "
-            "ray_tracing_octrees_tpu_torch.tools.exp_warp_ablate, "
-            "ray_tracing_octrees_tpu_torch.bench, "
-            "ray_tracing_octrees_tpu_torch.config, "
-            "ray_tracing_octrees_tpu_torch.models.octree_raytracer, "
-            "ray_tracing_octrees_tpu_torch.render.frustum, "
-            "ray_tracing_octrees_tpu_torch.trace.sweep_exact, "
-            "ray_tracing_octrees_tpu_torch.trace.mesh_grid, "
-            "ray_tracing_octrees_tpu_torch.ops.sampling, "
-            "ray_tracing_octrees_tpu_torch.ops.precompute, "
-            "ray_tracing_octrees_tpu_torch.ops.carve, "
-            "ray_tracing_octrees_tpu_torch.trace.raymarch, "
-            "ray_tracing_octrees_tpu_torch.trace.raymarch_sweep, "
-            "ray_tracing_octrees_tpu_torch.models.volume_raycaster, "
-            "ray_tracing_octrees_tpu_torch.core.octree, "
-            "ray_tracing_octrees_tpu_torch.ops.mc_tables, "
-            "ray_tracing_octrees_tpu_torch.ops.compaction, "
-            "ray_tracing_octrees_tpu_torch.ops.marching_cubes, "
-            "ray_tracing_octrees_tpu_torch.ops.blocks, "
-            "ray_tracing_octrees_tpu_torch.ops.qef, "
-            "ray_tracing_octrees_tpu_torch.ops.dual_contouring, "
-            "ray_tracing_octrees_tpu_torch.models.extraction; "
+    """Every module of the port, found by walking the package, imports
+    without importing JAX or the JAX package."""
+    code = ("import importlib, pkgutil, sys; "
+            "import ray_tracing_octrees_tpu_torch as p; "
+            "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "p.__name__ + '.')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "assert len(mods) > 50, mods; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ray_tracing_octrees_tpu' "
             "or m.startswith('ray_tracing_octrees_tpu.')]; "
