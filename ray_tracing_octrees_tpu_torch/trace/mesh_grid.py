@@ -531,8 +531,8 @@ def _consume_rounds(sw: _Sweep, cand_bits, uaf, ubf, half_a, half_b,
     rows (one host sync, the compaction), so every live row advances once
     a round, as on the reference's ladder when its overflow is 0.
 
-    Returns the full-width state (hit, t world, fi cell index, case, tri,
-    resolved) and host ints rounds, unresolved, hist (unresolved after
+    Returns the full-width state (ptr, hit, t world, fi cell index,
+    case, tri) and host values rounds, unresolved, hist (unresolved after
     each round, 0 past the last), syncs.
     """
     n = cand_bits.shape[0]
