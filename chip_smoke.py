@@ -180,11 +180,48 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               (one with the 2x2 footprint): trace_mc_mesh_texels' hit,
               case, tri, t, normal and shadow, build_lbvh's arrays,
               trace_lbvh's hit, tri and t, and a 128x128 frame bitwise
-  31. lines   the kernels JSON line (each kernel's calls held on the
-              exact tracers', the volume frame's, the linear tree's and
-              the mesh frames' paths under "held_on_paths"; the
-              extraction paths' launches, all 0), the nvidia-smi line,
-              and last the {"ok": true, "device": {...}} line
+  31. app     Application(device="cuda").setup on the 256^3 sphere at
+              1920x1080, each of the five modes for a cold frame and 14
+              frames after orbit(5, 0): the schedule (extract + raster,
+              raster, render, replay), rendered and replayed ms, the
+              host copy's ms, the launches of rows 1-3 (counts set to 0
+              before, read after; none on the extraction modes), one
+              rendered frame with every kernel call held bitwise (the
+              volume mode must launch warp_lookup_multi, the ray trace
+              warp_lookup), host syncs a rendered frame, the idle share
+              under torch.profiler, peak memory, the tracer's last_path;
+              for the extraction modes the JAX package's triangle counts,
+              the extraction ms and the rasterizer's depth, winner and
+              shade passes by CUDA events
+  32. app extras  the wireframe (S) in MC mode (12 x 87381 lines, the
+              cap of max_lines // 12 leaves), a click at the centre in
+              volume mode (it must hit, and the next rendered frame
+              differ), DC twice at one pose (the second from the
+              triangle cache, with an equal count)
+  33. bootstrap  load_scene on the seeded city of ingest/city.py: the
+              CSV route writes the cache, the second call loads it, the
+              grids equal
+  34. pipeline  render_fast_frames_pipelined over 20 poses of the bench
+              orbit at 1920x1080 (shadows, 1024^2 table) against a loop
+              of render_fast_frame(fused=False): bitwise, warp_lookup's
+              calls held; ms a frame of both (best of 3 windows, in
+              turns), device busy share and kernel overlap under
+              torch.profiler
+  35. cli     rto-render (render/app.main) for VOLUME_RAYCAST, 2 frames,
+              and the demo (examples/render_demo.main), into temporary
+              directories: every PNG read back with zlib at 960x540;
+              rows 1-3 counted and held on both
+  36. app card vs CPU  on the 32^3 sphere at 128x128: rasterize_triangles'
+              image and z-buffer, octree_wireframe's segments,
+              rasterize_lines over them, and one Application frame of
+              each extraction mode, bitwise
+  37. lines   the kernels JSON line (each kernel's calls held on the
+              exact tracers', the volume frame's, the linear tree's, the
+              mesh frames', the app's, the pipeline's, the CLI's and the
+              demo's paths under "held_on_paths"; the extraction paths'
+              launches, all 0), the whole run's wall time, the
+              nvidia-smi line, and last the {"ok": true, "device": {...}}
+              line
 
 Imports nothing of JAX or of the JAX package. Without a CUDA device, or
 without the port package beside it, it exits non-zero and prints no result.
@@ -2638,6 +2675,561 @@ def mesh_phases(ctx: dict) -> dict:
     return out
 
 
+# The app shell, the pipelined fast frames, the CLI and the demo (phases
+# 31-36). The JAX package's triangle counts of the three extraction
+# pipelines at the app's pose (margin 50 keeps every node of the sphere)
+APP_TRIANGLES = {"MARCHING_CUBES": SPHERE_COUNTS["mc"],
+                 "BLOCKS": SPHERE_COUNTS["blocks"],
+                 "DUAL_CONTOURING": SPHERE_COUNTS["adaptive_dc"]}
+APP_ORBITS = 14        # frames after the cold one, each after orbit(5, 0)
+# the wireframe keeps the first max_lines // 12 leaves in node order
+# (render/wireframe.py): 87381 of the sphere's 328056 leaves
+WIREFRAME_LINES = 12 * ((1 << 20) // 12)
+N_PIPELINED = 20       # poses of the bench's orbit (phi += 1e-4 a frame)
+RASTER_CHUNK = 65536   # rasterize_triangles' default chunk
+DEMO_FRAMES = ("raytrace_fast.png", "raytrace_exact.png",
+               "raytrace_fast_exact.png", "marching_cubes.png", "blocks.png",
+               "volume_raycast.png", "volume_raycast_closeup.png")
+
+
+def png_size(path: str):
+    """(width, height) of an 8-bit RGBA PNG whose pixel rows decode with
+    zlib to the size its header gives; raises otherwise."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError(f"{path}: not a PNG")
+    w, h = struct.unpack(">II", data[16:24])
+    pos, idat = 8, b""
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    if len(zlib.decompress(idat)) != h * (1 + 4 * w):
+        raise RuntimeError(f"{path}: pixel rows do not match {w}x{h}")
+    return w, h
+
+
+def device_busy(fn):
+    """(wall ms, device-busy ms, summed kernel ms) of one ``fn()`` under
+    torch.profiler: busy is the union of the kernels' intervals, so the
+    sum over it is the overlap of concurrent kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    busy = total = 0.0
+    end = None
+    for s, e in spans:
+        total += e - s
+        if end is None or s >= end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return wall, busy / 1e3, total / 1e3
+
+
+def app_phases(ctx: dict) -> dict:
+    """Phases 31-36: the application shell at 1920x1080 on the 256^3
+    sphere (five modes, the wireframe, a click, the DC cache), the scene
+    bootstrap on the seeded city, the pipelined fast frames against the
+    per-pose loop, the CLI and the demo, and the rasterizer, wireframe and
+    extraction frames on the card against the CPU. Returns the record's
+    section, with rows 1-3's launches ("launches") and held calls
+    ("held") by path."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tracing_octrees_tpu_torch.config import EngineConfig
+    from ray_tracing_octrees_tpu_torch.core.grid import (
+        building_center, make_sphere_grid,
+    )
+    from ray_tracing_octrees_tpu_torch.core.octree import build_linear_octree
+    from ray_tracing_octrees_tpu_torch.examples import render_demo
+    from ray_tracing_octrees_tpu_torch.ingest.city import write_city_csv
+    from ray_tracing_octrees_tpu_torch.ops.marching_cubes import (
+        marching_cubes_grid,
+    )
+    from ray_tracing_octrees_tpu_torch.parallel import (
+        render_fast_frames_pipelined,
+    )
+    from ray_tracing_octrees_tpu_torch.render import app as app_mod
+    from ray_tracing_octrees_tpu_torch.render import raster
+    from ray_tracing_octrees_tpu_torch.render.app import (
+        Application, RenderMode,
+    )
+    from ray_tracing_octrees_tpu_torch.render.camera import Camera
+    from ray_tracing_octrees_tpu_torch.render.wireframe import (
+        octree_wireframe,
+    )
+    from ray_tracing_octrees_tpu_torch.trace import fast_exact, sweep_exact
+    from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep as rs
+    from ray_tracing_octrees_tpu_torch.trace import slab_sweep
+    from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
+
+    dev, smi, grid = ctx["dev"], ctx["smi"], ctx["grid"]
+    W, H = WIDTH, HEIGHT
+    rec = {"card": smi}
+    out = {"launches": {}, "held": {}}
+    kernels = {"warp_frame": wk.warp_frame, "warp_lookup": wk.warp_lookup,
+               "warp_lookup_multi": wk.warp_lookup_multi}
+    references = {"warp_frame": wk.warp_frame_reference,
+                  "warp_lookup": wk.warp_lookup_reference,
+                  "warp_lookup_multi": wk.warp_lookup_multi_reference}
+    targets = [(slab_sweep, "warp_frame"), (slab_sweep, "warp_lookup"),
+               (sweep_exact, "warp_lookup"), (fast_exact, "warp_lookup_multi"),
+               (rs, "warp_lookup_multi")]
+
+    def counted(label, fn, hold_calls=True):
+        """``fn()`` with rows 1-3's counts set to 0 before it and read
+        after it, and (``hold_calls``) every call of them held bitwise
+        against its plain version: (result, launches, held)."""
+        for k in kernels.values():
+            k.launches = 0
+        calls, restore = held_calls(targets) if hold_calls else ({}, None)
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            if restore is not None:
+                restore()
+        launched = {k: f.launches for k, f in kernels.items()}
+        held = {k: hold(v, references[k]) for k, v in calls.items() if v}
+        require_held(label, held)
+        out["launches"][label] = launched
+        for k, h in held.items():
+            out["held"].setdefault(k, {})[label] = h
+        return res, launched, held
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    # 31. the application: five modes at 1920x1080 on the 256^3 sphere
+    tmp = tempfile.mkdtemp(prefix="rto_app_")
+    t = time.perf_counter()
+    app = Application(device=dev).setup(grid=grid)
+    app.tri_cache.directory = os.path.join(tmp, "triangle_cache")
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t
+    log("app", f"[{smi}] Application(device={str(dev)!r}).setup on the "
+        f"{SPHERE_DIM}^3 sphere: {rec['setup_s']:.2f} s (pyramid, linear "
+        f"octree, tracer, volume textures); {app.tree.num_nodes} nodes")
+    x = torch.zeros((H, W, 4), dtype=torch.float32, device=dev)
+    copies = []
+    for _ in range(5):
+        _, ms = wall(lambda: x.cpu().numpy())
+        copies.append(ms)
+    rec["host_copy_ms"] = min(copies)
+    del x
+    log("app", f"[{smi}] the host copy of a {W}x{H} rgba frame "
+        f"({H * W * 16 / 1e6:.1f} MB): {rec['host_copy_ms']:.3f} ms (min "
+        f"of 5)")
+
+    def frame_kind(stages, new_mesh, mode):
+        if mode.name in APP_TRIANGLES:
+            return "extract+raster" if new_mesh else "raster"
+        return "render" if stages else "replay"
+
+    modes = {}
+    for mode in RenderMode:
+        app.mode = mode
+        app._cached_frames.clear()
+        app._cached_dev.clear()
+        app._cached_mesh = None
+        torch.cuda.reset_peak_memory_stats()
+        sched, times = [], []
+
+        def one():
+            calls = {k: s.calls for k, s in app.timer.stats.items()}
+            mesh = app._cached_mesh
+            res, ms = wall(lambda: app.frame(W, H))
+            ran = {k for k, s in app.timer.stats.items()
+                   if s.calls > calls.get(k, 0)}
+            sched.append(frame_kind(ran, app._cached_mesh is not mesh, mode))
+            times.append(ms)
+            return res
+
+        first = None
+
+        def run():
+            nonlocal first
+            first = one()
+            for _ in range(APP_ORBITS):
+                app.orbit(5.0, 0.0)
+                one()
+
+        counted(f"app {mode.name} (phase 31)", run, hold_calls=False)
+        launched = out["launches"][f"app {mode.name} (phase 31)"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        color = first["color"]
+        if color.shape != (H, W, 4) or not np.isfinite(color).all():
+            raise RuntimeError(f"app {mode.name}: bad frame {color.shape}")
+        m = dict(schedule=sched, cold_ms=times[0], launches=launched,
+                 peak_gib=peak)
+        rendered = [ms for s, ms in zip(sched[1:], times[1:])
+                    if s != "replay"]
+        replayed = [ms for s, ms in zip(sched[1:], times[1:])
+                    if s == "replay"]
+        m["rendered_ms_min"] = min(rendered, default=None)
+        m["rendered_ms_median"] = (statistics.median(rendered) if rendered
+                                   else None)
+        m["replayed_ms"] = statistics.median(replayed) if replayed else None
+
+        def rendered_frame():
+            app.orbit(5.0, 0.0)
+            if mode is RenderMode.VOLUME_RAYCAST:
+                app._cached_frames.clear()
+            return app.frame(W, H)
+
+        if mode is RenderMode.OCTREE_RAYTRACE:
+            # the orbit's frames take the DDA over the frustum-culled
+            # pyramid, which launches no kernel; the held frame moves to
+            # the bench angles at the exact radius, where the tracer
+            # takes sweep-exact (its dead test through warp_lookup)
+            m["orbit_path"] = app.raytracer.last_path
+            app.camera.theta, app.camera.phi = 0.9, 0.8
+            app.camera.radius = EXACT_RADIUS * float(
+                (grid.world_max - grid.world_min).max())
+        # one rendered frame with every kernel call held
+        counted(f"app {mode.name} held frame (phase 31)", rendered_frame)
+        m["held"] = {k: v.get(f"app {mode.name} held frame (phase 31)")
+                     for k, v in out["held"].items()
+                     if f"app {mode.name} held frame (phase 31)" in v}
+        m["host_syncs"] = count_syncs(rendered_frame)
+        fwall, busy, ksum = device_busy(rendered_frame)
+        m.update(profiled_wall_ms=fwall, device_busy_ms=busy,
+                 idle_share=1.0 - busy / fwall)
+        if mode.name in APP_TRIANGLES:
+            mesh = app._cached_mesh
+            if mesh.count != APP_TRIANGLES[mode.name]:
+                raise RuntimeError(f"app {mode.name}: {mesh.count} "
+                                   f"triangles, the JAX package's "
+                                   f"{APP_TRIANGLES[mode.name]}")
+            st = app.timer.stats[{"MARCHING_CUBES": "extract/mc",
+                                  "BLOCKS": "extract/blocks",
+                                  "DUAL_CONTOURING": "extract/dc"}[
+                                      mode.name]]
+            m["triangles"] = mesh.count
+            m["extract_ms_mean"] = st.mean_ms
+            m["extractions"] = st.calls
+            # the rasterizer's passes on this mesh by CUDA events
+            vp = app._view_proj(W / H)
+            colors = torch.full((mesh.count, 3), 0.8, device=dev)
+            def passes_ms(chunk):
+                """Min over 3 runs of each pass's ms by CUDA events, and
+                the peak memory of a run (GiB)."""
+                passes = {"depth": [], "winner": [], "shade": []}
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(3):
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(4)]
+                    ev[0].record()
+                    r = raster._Raster(mesh.verts_dev,
+                                       raster._on_device(vp, dev), W, H,
+                                       None, 16)
+                    zb, kept = raster.depth_pass(r, chunk)
+                    ev[1].record()
+                    win = raster.winner_pass(zb, kept)
+                    del kept
+                    ev[2].record()
+                    raster.shade_winners(r, mesh.verts_dev, mesh.normals_dev,
+                                         colors, win, zb,
+                                         app.camera.get_pos())
+                    ev[3].record()
+                    torch.cuda.synchronize()
+                    for k, a, b in (("depth", 0, 1), ("winner", 1, 2),
+                                    ("shade", 2, 3)):
+                        passes[k].append(ev[a].elapsed_time(ev[b]))
+                return ({k: min(v) for k, v in passes.items()},
+                        torch.cuda.max_memory_allocated() / 2**30)
+
+            m["raster_ms"], m["raster_peak_gib"] = passes_ms(RASTER_CHUNK)
+            if mode is RenderMode.MARCHING_CUBES:
+                # the reference's chunk (the output is the same): its time
+                # and memory beside the default's
+                m["raster_ms_chunk_16384"], m["raster_peak_gib_16384"] = \
+                    passes_ms(16384)
+            m["raster_samples_a_pass"] = mesh.count * 256
+            m["raster_chunks"] = -(-mesh.count // RASTER_CHUNK)
+        if mode is RenderMode.OCTREE_RAYTRACE:
+            m["tracer_path"] = app.raytracer.last_path
+            if m["tracer_path"] != "sweep_exact":
+                raise RuntimeError(f"app OCTREE_RAYTRACE at the exact radius "
+                                   f"took {m['tracer_path']}")
+        need = {"VOLUME_RAYCAST": "warp_lookup_multi",
+                "OCTREE_RAYTRACE": "warp_lookup"}.get(mode.name)
+        if need and not m["held"].get(need, {}).get("calls"):
+            raise RuntimeError(f"app {mode.name}: {need} did not launch on "
+                               f"its rendered frame: {m['held']}")
+        if mode.name in APP_TRIANGLES and any(launched.values()):
+            raise RuntimeError(f"app {mode.name}: a kernel launched on the "
+                               f"extraction path: {launched}")
+        modes[mode.name] = m
+        log("app", f"[{smi}] {mode.name}: schedule {sched}; cold "
+            f"{times[0]:.1f} ms, rendered {m['rendered_ms_min']} / "
+            f"{m['rendered_ms_median']} ms (min / median), replayed "
+            f"{m['replayed_ms']} ms; syncs a rendered frame "
+            f"{m['host_syncs']}; idle {m['idle_share']:.3f} (busy "
+            f"{busy:.2f} of {fwall:.2f} ms); peak {peak:.2f} GiB; launches "
+            f"{launched}; held {m['held']}"
+            + (f"; {m['triangles']} triangles, extraction "
+               f"{m['extract_ms_mean']:.2f} ms x{m['extractions']}, raster "
+               f"passes {m['raster_ms']} ms, peak {m['raster_peak_gib']:.2f} "
+               f"GiB ({m['raster_chunks']} chunks of {RASTER_CHUNK}, "
+               f"{m['raster_samples_a_pass']} samples a pass)"
+               + (f"; chunk 16384: {m['raster_ms_chunk_16384']} ms, peak "
+                  f"{m['raster_peak_gib_16384']:.2f} GiB"
+                  if "raster_ms_chunk_16384" in m else "")
+               if mode.name in APP_TRIANGLES else "")
+            + (f"; tracer path {m['orbit_path']} on the orbit, "
+               f"{m['tracer_path']} on the held frame (bench angles, "
+               f"radius {EXACT_RADIUS} x extent)"
+               if mode is RenderMode.OCTREE_RAYTRACE else ""))
+    rec["modes"] = modes
+
+    # 32. the overlay, a click, the DC cache
+    app.mode = RenderMode.MARCHING_CUBES
+    app._cached_mesh = None
+    app.frame(W, H)
+    app.handle_key("S")
+    (wf_out, wf_ms) = wall(lambda: app.frame(W, H))
+    app.handle_key("S")
+    n_lines = wf_out["wireframe"]["count"]
+    if n_lines != WIREFRAME_LINES:
+        raise RuntimeError(f"wireframe: {n_lines} lines, not "
+                           f"{WIREFRAME_LINES}")
+    _, nowf_ms = wall(lambda: app.frame(W, H))
+    vp = app._view_proj(W / H)
+    (segs, _), seg_ms = wall(lambda: octree_wireframe(
+        app.tree, app._origin, app._voxel, vp, 50.0))
+    rec["wireframe"] = dict(lines=n_lines, frame_ms=wf_ms,
+                            frame_without_ms=nowf_ms, segments_ms=seg_ms,
+                            line_samples=n_lines * 64)
+    log("app", f"[{smi}] wireframe (S) in MARCHING_CUBES: {n_lines} lines "
+        f"(12 x {n_lines // 12} of {SPHERE_COUNTS['leaves']} leaves), "
+        f"frame {wf_ms:.1f} ms against {nowf_ms:.1f} ms without; "
+        f"octree_wireframe {seg_ms:.2f} ms; {n_lines * 64} line samples")
+    app.mode = RenderMode.VOLUME_RAYCAST
+    app._cached_frames.clear()
+    before = app.frame(W, H)["color"]
+    (hit, click_ms) = wall(lambda: app.click(W / 2, H / 2, W, H))
+    app._cached_frames.clear()
+    after = app.frame(W, H)["color"]
+    changed = int((np.abs(after - before).max(-1) > 0).sum())
+    if not hit or changed == 0:
+        raise RuntimeError(f"click: hit {hit}, {changed} pixels changed")
+    rec["click"] = dict(hit=hit, ms=click_ms, pixels_changed=changed)
+    log("app", f"[{smi}] click at the centre in VOLUME_RAYCAST: hit, "
+        f"{click_ms:.1f} ms (pick, splat, precompute queued); the next "
+        f"rendered frame differs on {changed} pixels")
+    app.mode = RenderMode.DUAL_CONTOURING
+    calls0 = app.timer.stats["extract/dc"].calls
+    app._cached_mesh = None
+    (_, dc_ms) = wall(lambda: app.frame(W, H))
+    first_count = app._cached_mesh.count
+    app._cached_mesh = None
+    (_, cached_ms) = wall(lambda: app.frame(W, H))
+    calls1 = app.timer.stats["extract/dc"].calls
+    if calls1 != calls0 + 1 or app._cached_mesh.count != first_count:
+        raise RuntimeError(f"DC cache: {calls1 - calls0} extractions, "
+                           f"{app._cached_mesh.count} vs {first_count}")
+    rec["dc_cache"] = dict(extract_frame_ms=dc_ms, cached_frame_ms=cached_ms,
+                           count=first_count)
+    log("app", f"[{smi}] DC at one pose twice: extracted and saved "
+        f"{dc_ms:.1f} ms, then loaded from the triangle cache "
+        f"{cached_ms:.1f} ms, {first_count} triangles both")
+    del app
+    torch.cuda.empty_cache()
+
+    # 33. scene bootstrap: the seeded city through load_scene
+    city = tempfile.mkdtemp(prefix="rto_city_")
+    os.makedirs(os.path.join(city, "DT"))
+    write_city_csv(os.path.join(city, "DT"))
+    cfg = EngineConfig(cache_filename=os.path.join(city, "sceneCache.bin"))
+    (g_csv, csv_ms) = wall(lambda: app_mod.load_scene(
+        cfg, search_dirs=(city,), device=dev))
+    (g_cache, cache_ms) = wall(lambda: app_mod.load_scene(
+        cfg, search_dirs=(city,), device=dev))
+    same = (torch.equal(g_csv.occ, g_cache.occ)
+            and torch.equal(g_csv.origin, g_cache.origin)
+            and torch.equal(g_csv.voxel_size, g_cache.voxel_size))
+    if not same:
+        raise RuntimeError("load_scene: the cached grid differs from the "
+                           "CSV grid")
+    rec["bootstrap"] = dict(csv_ms=csv_ms, cache_ms=cache_ms,
+                            dims=list(g_csv.occ.shape),
+                            filled=int(g_csv.occ.sum()))
+    log("app", f"[{smi}] load_scene on the seeded city: CSV route "
+        f"{csv_ms:.1f} ms (native parse, voxelizer, cache written), cache "
+        f"route {cache_ms:.1f} ms, grids equal {tuple(g_csv.occ.shape)}")
+
+    # 34. pipelined fast frames against the per-pose loop
+    vol, shadow, layouts = ctx["vol"], ctx["shadow"], ctx["layouts"]
+    origin, vox = ctx["origin"], ctx["vox"]
+    light_dir = tuple(-c for c in TO_LIGHT)
+    aspect = W / H
+    cam = ctx["bench_camera"]()
+    poses = []
+    for _ in range(N_PIPELINED):
+        cam.phi += 1e-4
+        poses.append((cam.get_pos(), cam.get_view()))
+    kw = dict(light_dir=light_dir, inter_h=1024, inter_w=1024,
+              layouts=layouts, device=dev)
+
+    def pipelined():
+        return render_fast_frames_pipelined(vol, shadow, origin, vox, poses,
+                                            45.0, aspect, W, H, **kw)
+
+    def loop():
+        return [slab_sweep.render_fast_frame(
+            vol, shadow, origin, vox, p, v, 45.0, aspect, W, H, fused=False,
+            **kw) for p, v in poses]
+
+    piped, p_launch, p_held = counted("pipelined fast frames (phase 34)",
+                                      pipelined)
+    looped, l_launch, l_held = counted("per-pose unfused loop (phase 34)",
+                                       loop)
+    equal = [torch.equal(a, b) for a, b in zip(piped, looped)]
+    if len(piped) != N_PIPELINED or not all(equal):
+        raise RuntimeError(f"pipelined frames differ from the loop: "
+                           f"{equal}")
+    if p_launch["warp_lookup"] < N_PIPELINED:
+        raise RuntimeError(f"pipeline: warp_lookup launched {p_launch}")
+    del piped, looped
+    per = {}
+    for name, fn in (("pipelined", pipelined), ("loop", loop),
+                     ("pipelined again", pipelined), ("loop again", loop)):
+        best = min(wall(fn)[1] for _ in range(3)) / N_PIPELINED
+        per[name] = best
+    p_wall, p_busy, p_sum = device_busy(pipelined)
+    l_wall, l_busy, l_sum = device_busy(loop)
+    rec["pipeline"] = dict(
+        frames=N_PIPELINED, equal=True, ms_per_frame=per,
+        launches=p_launch, held=p_held,
+        pipelined_profile=dict(wall_ms=p_wall, busy_ms=p_busy,
+                               kernel_sum_ms=p_sum,
+                               busy_share=p_busy / p_wall,
+                               overlap=p_sum / p_busy),
+        loop_profile=dict(wall_ms=l_wall, busy_ms=l_busy, kernel_sum_ms=l_sum,
+                          busy_share=l_busy / l_wall,
+                          overlap=l_sum / l_busy))
+    log("pipeline", f"[{smi}] {N_PIPELINED} poses of the bench orbit at "
+        f"{W}x{H}, shadows, 1024^2 table: pipelined equal to the per-pose "
+        f"unfused loop bitwise; ms a frame (best of 3 windows, in turns) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+        + f"; device busy {p_busy / p_wall:.3f} of the pipelined wall "
+        f"(kernel overlap {p_sum / p_busy:.3f}x), {l_busy / l_wall:.3f} of "
+        f"the loop's ({l_sum / l_busy:.3f}x); warp_lookup held {p_held}")
+
+    # 35. the CLI and the demo
+    cli_dir = os.path.join(tmp, "cli")
+    (_, cli_ms) = wall(lambda: counted(
+        "rto-render VOLUME_RAYCAST (phase 35)",
+        lambda: app_mod.main(["--mode", "VOLUME_RAYCAST", "--frames", "2",
+                              "--out", cli_dir, "--device", str(dev)])))
+    cli_pngs = sorted(os.listdir(cli_dir))
+    sizes = {n: png_size(os.path.join(cli_dir, n)) for n in cli_pngs}
+    if cli_pngs != ["volume_raycast_000.png", "volume_raycast_001.png"] or \
+            set(sizes.values()) != {(960, 540)}:
+        raise RuntimeError(f"rto-render wrote {sizes}")
+    demo_dir = os.path.join(tmp, "demo")
+    (_, demo_ms) = wall(lambda: counted(
+        "render_demo (phase 35)", lambda: render_demo.main(demo_dir,
+                                                           device=dev)))
+    demo = {n: png_size(os.path.join(demo_dir, n)) for n in DEMO_FRAMES}
+    if set(demo.values()) != {(960, 540)}:
+        raise RuntimeError(f"the demo wrote {demo}")
+    demo_launches = out["launches"]["render_demo (phase 35)"]
+    # the fast trace launches warp_frame, the fast-exact trace and the
+    # volume frames warp_lookup_multi; the exact trace at the demo's
+    # radius (0.75 x extent) takes the DDA, unseeded there
+    if not (demo_launches["warp_frame"] and
+            demo_launches["warp_lookup_multi"]):
+        raise RuntimeError(f"the demo did not launch rows 1 and 3: "
+                           f"{demo_launches}")
+    rec["cli"] = dict(ms=cli_ms, pngs=cli_pngs,
+                      launches=out["launches"][
+                          "rto-render VOLUME_RAYCAST (phase 35)"])
+    rec["demo"] = dict(ms=demo_ms, pngs=list(demo), launches=demo_launches)
+    log("cli", f"[{smi}] rto-render --mode VOLUME_RAYCAST --frames 2: "
+        f"{cli_ms / 1e3:.2f} s with set-up, {cli_pngs} at 960x540; the "
+        f"demo: {demo_ms / 1e3:.2f} s, {len(demo)} PNGs at 960x540; "
+        f"launches {rec['cli']['launches']} and {demo_launches}, every "
+        f"call held")
+
+    # 36. card against CPU on the 32^3 sphere at 128x128
+    res = {}
+    devs = {"cpu": torch.device("cpu"), "card": dev}
+    small = {d: make_sphere_grid(32, device=v) for d, v in devs.items()}
+    scam = Camera(theta=0.6, phi=0.4, radius=1.6)
+    svp = (scam.get_proj(1.0) @ scam.get_view()).astype(np.float32)
+    ras = {}
+    for d, g in small.items():
+        v, n, c = marching_cubes_grid(g, max_triangles=40000,
+                                      device=devs[d])
+        c = int(c)
+        cols = torch.full((c, 3), 0.8, device=devs[d])
+        img, zb = raster.rasterize_triangles(v[:c], n[:c], cols, svp, 128,
+                                             128, cam_pos=scam.get_pos())
+        tree = build_linear_octree(g.occ, device=devs[d])
+        segs, nl = octree_wireframe(tree, g.origin, g.voxel_size, svp, 50.0)
+        lines = raster.rasterize_lines(img, zb, segs[:int(nl)], svp, 128,
+                                       128)
+        ras[d] = (img.cpu(), zb.cpu(), segs.cpu(), lines.cpu())
+    for k, i in (("rasterize_triangles image", 0), ("zbuf", 1),
+                 ("octree_wireframe segments", 2), ("rasterize_lines", 3)):
+        res[k] = torch.equal(ras["cpu"][i], ras["card"][i])
+    frames = {}
+    for d, g in small.items():
+        a = Application(config=EngineConfig(use_buildings=False,
+                                            sphere_dim=32), device=devs[d])
+        a.setup(grid=g)
+        a.tri_cache.directory = os.path.join(tmp, f"tc_{d}")
+        frames[d] = []
+        for mode in (RenderMode.MARCHING_CUBES, RenderMode.BLOCKS,
+                     RenderMode.DUAL_CONTOURING):
+            a.mode = mode
+            a._cached_mesh = None
+            frames[d].append(a.frame(128, 128))
+    for mode, fc, fg in zip(("MC", "blocks", "DC"), frames["cpu"],
+                            frames["card"]):
+        res[f"app {mode} frame"] = bool(np.array_equal(fc["color"],
+                                                       fg["color"]))
+        res[f"app {mode} mesh"] = bool(
+            np.array_equal(fc["mesh"]["verts"], fg["mesh"]["verts"]))
+    rec["card_vs_cpu"] = res
+    log("card vs cpu", f"[{smi}] 32^3 sphere at 128x128, card against "
+        f"CPU bitwise: {res}")
+    if not all(res.values()):
+        raise RuntimeError(f"card and CPU differ: {res}")
+    return dict(app=rec, **out)
+
+
 def main() -> int:
     import torch
 
@@ -3221,6 +3813,14 @@ def main() -> int:
         exact["launches"][path] = counts
     for k, by in mesh.pop("held").items():
         exact["held"].setdefault(k, {}).update(by)
+    # 31-36. the app shell, the pipeline, the CLI and demo, card vs CPU
+    app = app_phases(dict(dev=dev, smi=smi, grid=grid, vol=vol,
+                          shadow=shadow, layouts=layouts, origin=origin,
+                          vox=vox, bench_camera=bench_camera))
+    for path, counts in app.pop("launches").items():
+        exact["launches"][path] = counts
+    for k, by in app.pop("held").items():
+        exact["held"].setdefault(k, {}).update(by)
 
     by_path = {
         "warp_frame": {"fast frame (phase 4)": launches["warp_frame"]},
@@ -3236,7 +3836,7 @@ def main() -> int:
         if k in by_path:
             by_path[k]["extraction pipelines (phase 24)"] = v
 
-    # 31. lines
+    # 37. lines
     held = exact["held"]
     record = {"kernels": [{
         "name": "warp_frame",
@@ -3333,7 +3933,10 @@ def main() -> int:
             "extraction"]["kernel_launches"]),
         "linear_tree_branches": branches,
         "mesh": mesh["mesh"],
+        "app": app["app"],
+        "wall_s": time.perf_counter() - T0,
         "card": smi}
+    log("lines", f"[{smi}] the whole run took {record['wall_s']:.1f} s")
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

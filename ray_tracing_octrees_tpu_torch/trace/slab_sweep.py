@@ -521,11 +521,25 @@ def _frame_parts(volume, shadow_vol, grid_origin, voxel_size, camera_pos,
     layouts = _scene_layouts(volume, shadow_vol, layouts, dev)
     origin = np.asarray(_host(grid_origin), np.float32)
     vox = float(_host(voxel_size))
-    axis_world, flip, (S, A, B), eyes, window, crop_lo = _sweep_geometry(
-        layouts.volume.shape, origin, vox, camera_pos, view)
+    axis_world, flip, sab, window, scal_np, vol_bf, shv = _frame_setup(
+        layouts, origin, vox, camera_pos, view, fov_deg, aspect, light_dir,
+        base_color, ambient)
     auto_h, auto_w = _auto_inter(window)
     inter_h = auto_h if inter_h is None else inter_h
     inter_w = auto_w if inter_w is None else inter_w
+    scal = torch.as_tensor(scal_np, device=dev)
+    table = _sweep_all(vol_bf, scal, *sab, inter_h, inter_w, flip,
+                       shadow_sw=shv)
+    return table, scal_np, axis_world, shv is not None
+
+
+def _frame_setup(layouts, origin, vox, camera_pos, view, fov_deg, aspect,
+                 light_dir, base_color, ambient):
+    """One pose's sweep, set up on the host: (sweep axis, flip, (S, A, B),
+    the table window, the frame scalars f32[43], and the volume's and the
+    shadow's sweep-order layouts, the shadow's None without one)."""
+    axis_world, flip, (S, A, B), eyes, window, crop_lo = _sweep_geometry(
+        layouts.volume.shape, origin, vox, camera_pos, view)
     origin_c = origin + _AXIS_SELECTORS[axis_world][0] * np.float32(crop_lo * vox)
     scal_np = _frame_scalars_np(
         *eyes[:3], eyes[3], *window, fov_deg, aspect, vox, S,
@@ -533,13 +547,9 @@ def _frame_parts(volume, shadow_vol, grid_origin, voxel_size, camera_pos,
         view, light_dir, base_color, ambient)
     flip = bool(flip)
     vol_bf = layouts.get("volume", axis_world, flip, S, crop_lo)
-    has_shadow = layouts.shadow is not None
     shv = layouts.get("shadow", axis_world, flip, S, crop_lo) \
-        if has_shadow else None
-    scal = torch.as_tensor(scal_np, device=dev)
-    table = _sweep_all(vol_bf, scal, S, A, B, inter_h, inter_w, flip,
-                       shadow_sw=shv)
-    return table, scal_np, axis_world, has_shadow
+        if layouts.shadow is not None else None
+    return axis_world, flip, (S, A, B), window, scal_np, vol_bf, shv
 
 
 def _scene_layouts(volume, shadow_vol, layouts, dev) -> SweepLayouts:

@@ -9,7 +9,10 @@ through ``warp_lookup``, ``OctreeRayTracer``'s four routes); and the
 linear octree, the extraction pipelines (plain PyTorch), the linear
 tree's branches, the MC mesh tracer and its frame (``warp_lookup`` on
 its colours), the LBVH and the dense voxelizer on the card against the
-CPU.
+CPU; and the rasterizer, the wireframe and the app's extraction frames
+on the card against the CPU, the app's volume and ray-trace frames with
+their kernels held, and the pipelined fast frames on two streams equal
+to the per-pose loop.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (a
 CUDA kernel has no CPU mode). The file imports nothing of JAX, so it also
@@ -913,3 +916,137 @@ def test_dense_voxelizer_on_card_equals_native():
     assert torch.equal(dense.origin.cpu(), host.origin)
     nat = runtime.voxelize_triangles(tris, 2.5, device="cpu")
     assert torch.equal(dense.occ.cpu(), nat.occ)
+
+
+# -- the app shell, the rasterizer, the wireframe, the pipeline ------------
+
+@pytest.fixture(scope="module")
+def app_pair(tmp_path_factory):
+    """Application on the card and on the CPU over the 32^3 sphere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from ray_tracing_octrees_tpu_torch.config import EngineConfig
+    from ray_tracing_octrees_tpu_torch.render.app import Application
+
+    apps = {}
+    for dev in ("cpu", "cuda"):
+        a = Application(config=EngineConfig(use_buildings=False,
+                                            sphere_dim=32), device=dev)
+        a.setup(grid=make_sphere_grid(32, device=dev))
+        a.tri_cache.directory = str(tmp_path_factory.mktemp(f"tc_{dev}"))
+        apps[dev] = a
+    return apps
+
+
+def test_raster_and_wireframe_card_vs_cpu():
+    """rasterize_triangles' image and z-buffer, octree_wireframe's
+    segments and rasterize_lines over them: the same bits on the card as
+    on the CPU (min and max scatters are order-free, every sum of
+    products is rounded in one form on both)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ray_tracing_octrees_tpu_torch.core.octree import build_linear_octree
+    from ray_tracing_octrees_tpu_torch.ops.marching_cubes import (
+        marching_cubes_grid,
+    )
+    from ray_tracing_octrees_tpu_torch.render import raster
+    from ray_tracing_octrees_tpu_torch.render.wireframe import (
+        octree_wireframe,
+    )
+
+    cam = Camera(theta=0.6, phi=0.4, radius=1.6)
+    vp = (cam.get_proj(1.0) @ cam.get_view()).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        g = make_sphere_grid(32, device=dev)
+        v, n, c = marching_cubes_grid(g, max_triangles=40000, device=dev)
+        c = int(c)
+        img, zb = raster.rasterize_triangles(
+            v[:c], n[:c], torch.full((c, 3), 0.8, device=dev), vp, 128, 128,
+            cam_pos=cam.get_pos(), chunk=4096)
+        segs, nl = octree_wireframe(build_linear_octree(g.occ, device=dev),
+                                    g.origin, g.voxel_size, vp, 50.0)
+        lines = raster.rasterize_lines(img, zb, segs[:int(nl)], vp, 128, 128)
+        outs[dev] = [t.cpu() for t in (img, zb, segs, lines)]
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert torch.equal(a, b)
+    assert bool((outs["cpu"][1] < 2.0).any())
+
+
+def test_app_extraction_frames_card_vs_cpu(app_pair):
+    from ray_tracing_octrees_tpu_torch.render.app import RenderMode
+
+    for mode in (RenderMode.MARCHING_CUBES, RenderMode.BLOCKS,
+                 RenderMode.DUAL_CONTOURING):
+        outs = {}
+        for dev, a in app_pair.items():
+            a.mode = mode
+            a._cached_mesh = None
+            outs[dev] = a.frame(128, 96)
+        np.testing.assert_array_equal(outs["cuda"]["color"],
+                                      outs["cpu"]["color"])
+        np.testing.assert_array_equal(outs["cuda"]["mesh"]["verts"],
+                                      outs["cpu"]["mesh"]["verts"])
+
+
+def test_app_ray_modes_hold_their_kernels_on_card(app_pair):
+    """The app's volume frame launches warp_lookup_multi and its ray
+    trace at the exact radius (sweep-exact) warp_lookup; every call equals
+    the plain version on its own inputs."""
+    from ray_tracing_octrees_tpu_torch.render.app import RenderMode
+    from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep
+    from ray_tracing_octrees_tpu_torch.trace import sweep_exact
+
+    a = app_pair["cuda"]
+    for mode, module, name in (
+            (RenderMode.VOLUME_RAYCAST, raymarch_sweep, "warp_lookup_multi"),
+            (RenderMode.OCTREE_RAYTRACE, sweep_exact, "warp_lookup")):
+        kept = []
+        real = getattr(module, name)
+
+        def keep(*args, _real=real):
+            out = _real(*args)
+            kept.append((args, out.clone()))
+            return out
+
+        a.mode = mode
+        a._cached_frames.clear()
+        a.camera.theta, a.camera.phi, a.camera.radius = 0.9, 0.8, 2.0
+        counter = getattr(warp_kernel, name)
+        before = counter.launches
+        setattr(module, name, keep)
+        try:
+            a.frame(160, 90)
+        finally:
+            setattr(module, name, real)
+        assert counter.launches > before and kept
+        ref = getattr(warp_kernel, f"{name}_reference")
+        for args, out in kept:
+            assert torch.equal(out, ref(*args))
+    assert a.raytracer.last_path == "sweep_exact"
+
+
+def test_pipelined_two_streams_equal_the_loop(scene):
+    """The sweep and the finish on two streams: every frame equals
+    render_fast_frame(fused=False) at its pose, and each launches
+    warp_lookup."""
+    from ray_tracing_octrees_tpu_torch.parallel import (
+        render_fast_frames_pipelined,
+    )
+
+    g, vol, sv, lay = scene
+    poses = []
+    for i in range(6):
+        cam = Camera(theta=0.4 + 0.1 * i, phi=0.7 + 0.9 * i, radius=2.0)
+        poses.append((cam.get_pos(), cam.get_view()))
+    kw = dict(light_dir=tuple(-c for c in TO_LIGHT), inter_h=512,
+              inter_w=512, layouts=lay, device="cuda")
+    origin, vox = g.origin.cpu().numpy(), float(g.voxel_size.cpu())
+    before = warp_kernel.warp_lookup.launches
+    frames = render_fast_frames_pipelined(vol, sv, origin, vox, poses, 45.0,
+                                          W / H, W, H, **kw)
+    assert warp_kernel.warp_lookup.launches == before + len(poses)
+    for (p, v), f in zip(poses, frames):
+        ref = slab_sweep.render_fast_frame(vol, sv, origin, vox, p, v, 45.0,
+                                           W / H, W, H, fused=False, **kw)
+        assert torch.equal(f, ref)

@@ -230,6 +230,7 @@ def _entry_points():
         "render_volume_frame": lambda: _volume_entry("render_volume_frame"),
         **_extraction_entry_points(),
         **_mesh_ingest_entry_points(),
+        **_app_entry_points(),
         **{f"tools.{name}.run": _driver_run(name) for name in (
             "exp_onehot_warp", "exp_warp_ablate", "exp_warp_tune",
             "exp_warp_tune2", "exp_warp_kernel", "exp_warp2pass")},
@@ -309,6 +310,32 @@ def _mesh_ingest_entry_points():
         "native.voxelize_triangles": lambda: runtime.voxelize_triangles(
             tris, 1.0),
         "native.load_grid": lambda: runtime.load_grid("unused.bin"),
+    }
+
+
+def _app_entry_points():
+    """The app shell's and the pipeline's entry points, called with no
+    device argument (a tiny sphere scene, nothing read from disk)."""
+    from ray_tracing_octrees_tpu_torch.config import EngineConfig
+    from ray_tracing_octrees_tpu_torch.examples import render_demo
+    from ray_tracing_octrees_tpu_torch.parallel import pipeline
+    from ray_tracing_octrees_tpu_torch.render import app, camera
+
+    cfg = EngineConfig(use_buildings=False, sphere_dim=8)
+    vol = np.zeros((8, 8, 8), np.float32)
+    vol[3:5, 3:5, 3:5] = 1
+    cam = camera.Camera(theta=0.4, phi=0.8, radius=2.0)
+    return {
+        "Application.setup": lambda: app.Application(config=cfg).setup(),
+        "load_scene": lambda: app.load_scene(cfg),
+        "rto-render": lambda: app.main(["--set", "use_buildings=false",
+                                        "--set", "sphere_dim=8"]),
+        "render_demo": lambda: render_demo.main(config=cfg),
+        "render_fast_frames_pipelined": lambda:
+            pipeline.render_fast_frames_pipelined(
+                vol, None, (-0.5,) * 3, 1 / 8,
+                [(cam.get_pos(), cam.get_view())], 45.0, 1.0, 8, 8,
+                inter_h=16, inter_w=16),
     }
 
 
