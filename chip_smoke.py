@@ -215,13 +215,34 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               image and z-buffer, octree_wireframe's segments,
               rasterize_lines over them, and one Application frame of
               each extraction mode, bitwise
-  37. lines   the kernels JSON line (each kernel's calls held on the
+  37. multichip 1 rank  the multi-device paths of parallel/ on a world-1
+              NCCL group (initialize_distributed with a file:// store):
+              sweep_frame_segmented and volume_frame_segmented on a ("sp",)
+              mesh at 1920x1080 at the bench pose, bitwise
+              render_fast_frame(fused=False) and render_volume_frame on the
+              phase-19 scene, warp_lookup and warp_lookup_multi counted
+              (set to 0 before, read after) and held; marching_cubes_halo
+              on make_mesh(1) bitwise dense MC; trace_sharded,
+              trace_shardmap, trace_segmented and render_image_sharded
+              (shadows) at 480x272 bitwise trace_octree /
+              render_octree_image; the four-slab trace min-combined in
+              this process against the single trace; ms a frame of each
+              segmented frame beside its single-device frame (best of 3
+              windows, CUDA events)
+  38. multichip 4 ranks  four gloo ranks spawned on the one card, on the
+              same scene and pose: both segmented frames at 1920x1080,
+              marching_cubes_halo with tp = 4 and trace_segmented at
+              (dp, tp) = (1, 4); rank 0's outputs bitwise phase 37's
+              (MC by counts and by triangles as multisets of lattice
+              keys); rows 2 and 3 counted and held in every rank; rank 0's
+              ms a frame (the ranks share the card: the collectives' cost)
+  39. lines   the kernels JSON line (each kernel's calls held on the
               exact tracers', the volume frame's, the linear tree's, the
-              mesh frames', the app's, the pipeline's, the CLI's and the
-              demo's paths under "held_on_paths"; the extraction paths'
-              launches, all 0), the whole run's wall time, the
-              nvidia-smi line, and last the {"ok": true, "device": {...}}
-              line
+              mesh frames', the app's, the pipeline's, the CLI's, the
+              demo's and the segmented frames' paths under
+              "held_on_paths"; the extraction paths' launches, all 0), the
+              whole run's wall time, the nvidia-smi line, and last the
+              {"ok": true, "device": {...}} line
 
 Imports nothing of JAX or of the JAX package. Without a CUDA device, or
 without the port package beside it, it exits non-zero and prints no result.
@@ -2785,37 +2806,20 @@ def app_phases(ctx: dict) -> dict:
     from ray_tracing_octrees_tpu_torch.trace import fast_exact, sweep_exact
     from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep as rs
     from ray_tracing_octrees_tpu_torch.trace import slab_sweep
-    from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
 
     dev, smi, grid = ctx["dev"], ctx["smi"], ctx["grid"]
     W, H = WIDTH, HEIGHT
     rec = {"card": smi}
     out = {"launches": {}, "held": {}}
-    kernels = {"warp_frame": wk.warp_frame, "warp_lookup": wk.warp_lookup,
-               "warp_lookup_multi": wk.warp_lookup_multi}
-    references = {"warp_frame": wk.warp_frame_reference,
-                  "warp_lookup": wk.warp_lookup_reference,
-                  "warp_lookup_multi": wk.warp_lookup_multi_reference}
     targets = [(slab_sweep, "warp_frame"), (slab_sweep, "warp_lookup"),
                (sweep_exact, "warp_lookup"), (fast_exact, "warp_lookup_multi"),
                (rs, "warp_lookup_multi")]
 
     def counted(label, fn, hold_calls=True):
-        """``fn()`` with rows 1-3's counts set to 0 before it and read
-        after it, and (``hold_calls``) every call of them held bitwise
-        against its plain version: (result, launches, held)."""
-        for k in kernels.values():
-            k.launches = 0
-        calls, restore = held_calls(targets) if hold_calls else ({}, None)
-        try:
-            res = fn()
-            torch.cuda.synchronize()
-        finally:
-            if restore is not None:
-                restore()
-        launched = {k: f.launches for k, f in kernels.items()}
-        held = {k: hold(v, references[k]) for k, v in calls.items() if v}
-        require_held(label, held)
+        """:func:`count_and_hold` of ``fn()`` (no call held unless
+        ``hold_calls``), its launches and held calls kept by path."""
+        res, launched, held = count_and_hold(
+            label, fn, targets if hold_calls else [])
         out["launches"][label] = launched
         for k, h in held.items():
             out["held"].setdefault(k, {})[label] = h
@@ -3228,6 +3232,403 @@ def app_phases(ctx: dict) -> dict:
     if not all(res.values()):
         raise RuntimeError(f"card and CPU differ: {res}")
     return dict(app=rec, **out)
+
+
+MULTI_RANKS = 4       # phase 38's gloo ranks, all on the one card
+MC_CAP = 1 << 20      # rows of phase 37's dense MC (the sphere's 493816 fit)
+N_SEGMENTED = 10      # segmented frames per timed window (phases 37-38)
+
+
+def count_and_hold(label: str, fn, targets):
+    """``fn()`` with rows 1-3's launch counts set to 0 before it and read
+    after it, every call of them through ``targets`` ((module, name)
+    pairs) held bitwise against its plain version: (result, launches,
+    held)."""
+    import torch
+
+    from ray_tracing_octrees_tpu_torch.trace import warp_kernel as wk
+
+    kernels = {"warp_frame": wk.warp_frame, "warp_lookup": wk.warp_lookup,
+               "warp_lookup_multi": wk.warp_lookup_multi}
+    for k in kernels.values():
+        k.launches = 0
+    calls, restore = held_calls(targets)
+    try:
+        res = fn()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launched = {k: f.launches for k, f in kernels.items()}
+    held = {k: hold(v, getattr(wk, k + "_reference"))
+            for k, v in calls.items() if v}
+    require_held(label, held)
+    return res, launched, held
+
+
+def segmented_paths(mesh, mesh_tp, sc: dict) -> dict:
+    """The calls phases 37 and 38 make on ``mesh`` (one "sp" axis) and
+    ``mesh_tp`` ((dp, tp)): both segmented frames at 1920x1080, counted
+    and held, halo MC and trace_segmented at OW x OH, and each frame's ms
+    (best of 3 windows of N_SEGMENTED, CUDA events). ``sc`` holds the
+    scene: vol, shadow, layouts, origin, vox, pos, view, scene (the
+    volume's), occ, mc_cap."""
+    from ray_tracing_octrees_tpu_torch.parallel import sharding as sh
+    from ray_tracing_octrees_tpu_torch.render.camera import generate_rays
+    from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep as rs
+    from ray_tracing_octrees_tpu_torch.trace import slab_sweep
+
+    aspect = WIDTH / HEIGHT
+    light_dir = tuple(-c for c in TO_LIGHT)
+    n = mesh.shape[0]
+
+    def fast():
+        return sh.sweep_frame_segmented(
+            mesh, sc["vol"], sc["shadow"], sc["origin"], sc["vox"],
+            sc["pos"], sc["view"], 45.0, aspect, WIDTH, HEIGHT,
+            light_dir=light_dir, layouts=sc["layouts"])
+
+    def volume():
+        return sh.volume_frame_segmented(
+            mesh, sc["scene"], sc["origin"], sc["pos"], sc["view"], 45.0,
+            aspect, WIDTH, HEIGHT)
+
+    out = {"launches": {}, "held": {}}
+    for name, fn, target in (("fast", fast, (slab_sweep, "warp_lookup")),
+                             ("volume", volume, (rs, "warp_lookup_multi"))):
+        label = f"{name} frame segmented over {n} rank(s)"
+        out[name], out["launches"][name], out["held"][name] = \
+            count_and_hold(label, fn, [target])
+    out["mc"] = sh.marching_cubes_halo(mesh_tp, sc["occ"], sc["origin"],
+                                       sc["vox"], sc["mc_cap"])
+    o, d = generate_rays(OW, OH, sc["pos"], sc["view"], 45.0, aspect,
+                         device=sc["vol"].device)
+    out["trace_segmented"] = sh.trace_segmented(mesh_tp, sc["occ"], o, d,
+                                                sc["origin"], sc["vox"])
+    out["ms"] = {"fast": cuda_ms(fast, N_SEGMENTED),
+                 "volume": cuda_ms(volume, N_SEGMENTED // 2)}
+    return out
+
+
+def _multichip_rank(rank: int, world: int, store: str, inp_path: str,
+                    out_dir: str, device: str) -> None:
+    """One of phase 38's gloo ranks, on the one card: the phase-37 scene
+    from ``inp_path``, :func:`segmented_paths` on a ("sp",) mesh and a
+    (1, world) mesh; rank 0 saves the results, every rank its launches,
+    held calls and ms."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from ray_tracing_octrees_tpu_torch.parallel import make_mesh
+    from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep as rs
+    from ray_tracing_octrees_tpu_torch.trace import slab_sweep
+
+    # gloo, not initialize_distributed's NCCL: NCCL takes one rank a card
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("gloo", init_method=store, world_size=world,
+                            rank=rank)
+    inp = torch.load(inp_path, weights_only=False)
+    vol = inp["vol"].to(dev).float()
+    shadow = inp["shadow"].to(dev)
+    scene = rs.VolumeSweepScene(
+        det=inp["det"].to(dev).float(),
+        bundles=[[b.to(dev).float() for b in ch] for ch in inp["bundles"]],
+        box_min=inp["box_min"], box_max=inp["box_max"],
+        voxel_size=inp["voxel_size"], sticky_inter=inp["sticky_inter"])
+    sc = dict(vol=vol, shadow=shadow,
+              layouts=slab_sweep.SweepLayouts(vol, shadow),
+              origin=inp["origin"], vox=inp["vox"], pos=inp["pos"],
+              view=inp["view"], scene=scene, occ=inp["occ"].to(dev),
+              mc_cap=inp["mc_cap"])
+    res = segmented_paths(
+        init_device_mesh(dev.type, (world,), mesh_dim_names=("sp",)),
+        make_mesh(world, dp=1, tp=world, device=dev), sc)
+    if rank == 0:
+        cpu = lambda x: {k: v.cpu() for k, v in x.items()} \
+            if isinstance(x, dict) else x.cpu()
+        torch.save({k: cpu(res[k]) if k != "mc" else
+                    tuple(v.cpu() for v in res[k])
+                    for k in ("fast", "volume", "mc", "trace_segmented")},
+                   os.path.join(out_dir, "outputs.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({k: res[k] for k in ("launches", "held", "ms")}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def lattice_keys(verts, vs: float):
+    """Triangles (rows of 9 coordinates) sorted by their exact vs/2
+    lattice keys, as tests/test_parallel.py compares MC multisets:
+    (sorted rows, keys)."""
+    import numpy as np
+
+    flat = verts.reshape(len(verts), -1)
+    q = np.round(flat / (vs / 2)).astype(np.int64)
+    order = np.lexsort(q.T)
+    return flat[order], q[order]
+
+
+def multichip_phases(ctx: dict) -> dict:
+    """Phases 37-38: the multi-device paths on the one card. 37: a
+    world-1 NCCL group; both segmented frames at 1920x1080 bitwise the
+    single-device frames with rows 2 and 3 counted and held, halo MC on
+    make_mesh(1) equal to dense MC, and the four tracers of
+    parallel/sharding.py at OW x OH against trace_octree /
+    render_octree_image; ms a frame beside the single-device frames. 38:
+    MULTI_RANKS gloo ranks spawned on the same card, their results
+    bitwise phase 37's. Returns the record's section, with rows 2 and 3's
+    launches ("launches") and held calls ("held") by path."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ray_tracing_octrees_tpu_torch.core.octree import build_pyramid
+    from ray_tracing_octrees_tpu_torch.models.octree_raytracer import (
+        render_octree_image,
+    )
+    from ray_tracing_octrees_tpu_torch.ops.marching_cubes import (
+        marching_cubes_grid,
+    )
+    from ray_tracing_octrees_tpu_torch.parallel import (
+        initialize_distributed, make_mesh,
+    )
+    from ray_tracing_octrees_tpu_torch.parallel import sharding as sh
+    from ray_tracing_octrees_tpu_torch.render.camera import generate_rays
+    from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep as rs
+    from ray_tracing_octrees_tpu_torch.trace import slab_sweep
+    from ray_tracing_octrees_tpu_torch.trace.octree_trace import trace_octree
+
+    dev, smi, grid = ctx["dev"], ctx["smi"], ctx["grid"]
+    aspect = WIDTH / HEIGHT
+    light_dir = tuple(-c for c in TO_LIGHT)
+    cam = ctx["bench_camera"]()
+    scene = ctx["volume_renderer"].sweep_scene()
+    sc = dict(vol=ctx["vol"], shadow=ctx["shadow"], layouts=ctx["layouts"],
+              origin=ctx["origin"], vox=ctx["vox"], pos=cam.get_pos(),
+              view=cam.get_view(), scene=scene, occ=grid.occ)
+    rec = {"card": smi}
+    out = {"launches": {}, "held": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multichip_")
+    try:
+        # 37. one rank on a world-1 NCCL group
+        t0 = time.perf_counter()
+        if not initialize_distributed(f"file://{tmp}/store37", 1, 0,
+                                      device=dev):
+            raise RuntimeError("initialize_distributed started no group")
+        if dist.get_backend() != "nccl":
+            raise RuntimeError(f"backend {dist.get_backend()}, not nccl")
+        single = {
+            "fast": slab_sweep.render_fast_frame(
+                sc["vol"], sc["shadow"], sc["origin"], sc["vox"], sc["pos"],
+                sc["view"], 45.0, aspect, WIDTH, HEIGHT, light_dir=light_dir,
+                layouts=sc["layouts"], device=dev, fused=False),
+            "volume": rs.render_volume_frame(
+                scene, sc["origin"], sc["pos"], sc["view"], 45.0, aspect,
+                WIDTH, HEIGHT, device=dev)}
+        dv, dn, dc = marching_cubes_grid(grid, max_triangles=MC_CAP,
+                                         device=dev)
+        n_tri = int(dc)
+        if not 0 < n_tri < MC_CAP:
+            raise RuntimeError(f"dense MC gave {n_tri} of {MC_CAP} rows")
+        sc["mc_cap"] = n_tri
+        mesh1 = init_device_mesh(dev.type, (1,), mesh_dim_names=("sp",))
+        m11 = make_mesh(1, device=dev)
+        seg = segmented_paths(mesh1, m11, sc)
+        frames_equal = {
+            "fast": torch.equal(seg["fast"], single["fast"]),
+            "volume": {k: torch.equal(seg["volume"][k], single["volume"][k])
+                       for k in ("color", "depth", "normal", "alpha")}}
+        if not (frames_equal["fast"] and all(frames_equal["volume"].values())):
+            raise RuntimeError(f"segmented frames on one rank differ from "
+                               f"the single-device frames: {frames_equal}")
+        hv, hn, hc = seg["mc"]
+        mc_equal = (hc.tolist() == [n_tri] and
+                    torch.equal(hv[:n_tri], dv[:n_tri]) and
+                    torch.equal(hn[:n_tri], dn[:n_tri]))
+        if not mc_equal:
+            raise RuntimeError(f"halo MC on one rank: counts {hc.tolist()} "
+                               f"against dense {n_tri}, or rows differ")
+        for path, name in (("fast", "warp_lookup"),
+                           ("volume", "warp_lookup_multi")):
+            label = f"{path} frame segmented, NCCL world 1 (phase 37)"
+            if seg["launches"][path][name] < 1:
+                raise RuntimeError(f"{label}: {name} not launched")
+            out["launches"][label] = seg["launches"][path]
+            for k, h in seg["held"][path].items():
+                out["held"].setdefault(k, {})[label] = h
+        single_ms = {
+            "fast": cuda_ms(lambda: slab_sweep.render_fast_frame(
+                sc["vol"], sc["shadow"], sc["origin"], sc["vox"], sc["pos"],
+                sc["view"], 45.0, aspect, WIDTH, HEIGHT, light_dir=light_dir,
+                layouts=sc["layouts"], device=dev, fused=False),
+                N_SEGMENTED),
+            "volume": cuda_ms(lambda: rs.render_volume_frame(
+                scene, sc["origin"], sc["pos"], sc["view"], 45.0, aspect,
+                WIDTH, HEIGHT, device=dev), N_SEGMENTED // 2)}
+
+        # the tracers of parallel/sharding.py at OW x OH
+        pyr = ctx["pyr"]
+        o, d = generate_rays(OW, OH, sc["pos"], sc["view"], 45.0, aspect,
+                             device=dev)
+        ref = trace_octree(pyr, o, d, sc["origin"], sc["vox"])
+        hit = ref["hit"]
+        tracers = {}
+        for name in ("trace_sharded", "trace_shardmap", "trace_segmented"):
+            res = seg["trace_segmented"] if name == "trace_segmented" else \
+                getattr(sh, name)(m11, grid.occ, o, d, sc["origin"],
+                                  sc["vox"])
+            eq = {"hit": torch.equal(res["hit"], hit),
+                  "steps": torch.equal(res["steps"], ref["steps"])}
+            for k in ("t", "point", "normal"):
+                eq[k] = torch.equal(res[k][hit], ref[k][hit])
+            tracers[name] = eq
+        img_ref = render_octree_image(
+            pyr, sc["origin"], sc["vox"], sc["pos"], sc["view"], OW, OH,
+            45.0, aspect, light_dir=light_dir, shadows=True, device=dev)
+        img = sh.render_image_sharded(m11, grid.occ, o, d, sc["origin"],
+                                      sc["vox"], light_dir=light_dir,
+                                      shadows=True)
+        tracers["render_image_sharded"] = {
+            "image": torch.equal(img.reshape(OH, OW, 4), img_ref)}
+        if not all(all(v.values()) for v in tracers.values()):
+            raise RuntimeError(f"sharded tracers against trace_octree / "
+                               f"render_octree_image: {tracers}")
+        # what trace_segmented over MULTI_RANKS slabs gives, combined here
+        g0 = torch.as_tensor(np.asarray(sc["origin"], np.float32), device=dev)
+        vs = torch.as_tensor(np.float32(sc["vox"]), device=dev)
+        zl = grid.occ.shape[0] // MULTI_RANKS
+        slabs = [trace_octree(build_pyramid(grid.occ[r * zl:(r + 1) * zl]),
+                              o, d, sh._slab_origin(g0, vs, r, zl), vs)
+                 for r in range(MULTI_RANKS)]
+        ts = torch.stack([torch.where(s["hit"], s["t"], sh._BIG)
+                          for s in slabs])
+        t_min = ts.amin(0)
+        won = [s["hit"] & (t == t_min) for s, t in zip(slabs, ts)]
+        pick = lambda k: sum(torch.where(w[:, None], s[k], 0.0)
+                             for w, s in zip(won, slabs))
+        hit4 = t_min < sh._BIG
+        combined = dict(hit=hit4, t=torch.where(hit4, t_min, 0.0),
+                        point=pick("point"), normal=pick("normal"),
+                        steps=sum(s["steps"] for s in slabs))
+        both = hit4 & hit
+        seg4_vs_single = dict(
+            hit_mismatches=int((hit4 != hit).sum()),
+            t_unequal=int((combined["t"][both] != ref["t"][both]).sum()),
+            max_dt_voxels=float((combined["t"][both] - ref["t"][both]).abs()
+                                .max()) / sc["vox"])
+        dist.destroy_process_group()
+        p37_s = time.perf_counter() - t0
+        rec["one_rank_nccl"] = dict(
+            frames_equal=frames_equal, mc_triangles=n_tri, mc_equal=mc_equal,
+            tracers=tracers, ms=seg["ms"], single_ms=single_ms,
+            launches=seg["launches"], held=seg["held"], seconds=p37_s,
+            trace_segmented_4_slabs_vs_single=seg4_vs_single)
+        log("multichip 1 rank", f"[{smi}] NCCL world 1, {WIDTH}x{HEIGHT} at "
+            f"the bench pose: sweep_frame_segmented and "
+            f"volume_frame_segmented bitwise the single-device frames; "
+            f"ms a frame (best of 3 windows, CUDA events) fast "
+            f"{seg['ms']['fast']:.3f} segmented / {single_ms['fast']:.3f} "
+            f"single, volume {seg['ms']['volume']:.3f} / "
+            f"{single_ms['volume']:.3f}; warp_lookup held "
+            f"{seg['held']['fast']}, warp_lookup_multi held "
+            f"{seg['held']['volume']}; halo MC = dense MC ({n_tri} "
+            f"triangles); {OW}x{OH}: trace_sharded, trace_shardmap, "
+            f"trace_segmented and render_image_sharded (shadows) bitwise "
+            f"trace_octree / render_octree_image; {MULTI_RANKS} slabs "
+            f"min-combined here against the single trace: {seg4_vs_single}; "
+            f"{p37_s:.1f} s")
+
+        # 38. MULTI_RANKS gloo ranks on the one card
+        t0 = time.perf_counter()
+        u8 = lambda x: x.to(torch.uint8).cpu()
+        for x in [scene.det] + [b for ch in scene.bundles for b in ch]:
+            if not torch.equal(u8(x).float(), x.cpu()):
+                raise RuntimeError("a sweep scene volume is not 8-bit")
+        inp_path = os.path.join(tmp, "inputs.pt")
+        torch.save(dict(
+            vol=u8(sc["vol"]), shadow=sc["shadow"].cpu(), occ=grid.occ.cpu(),
+            det=u8(scene.det), bundles=[[u8(b) for b in ch]
+                                        for ch in scene.bundles],
+            box_min=scene.box_min, box_max=scene.box_max,
+            voxel_size=scene.voxel_size, sticky_inter=scene.sticky_inter,
+            origin=sc["origin"], vox=sc["vox"], pos=sc["pos"],
+            view=sc["view"], mc_cap=n_tri), inp_path)
+        mp.spawn(_multichip_rank, args=(MULTI_RANKS, f"file://{tmp}/store38",
+                                        inp_path, tmp, str(dev)),
+                 nprocs=MULTI_RANKS, join=True)
+        got = torch.load(os.path.join(tmp, "outputs.pt"), weights_only=False)
+        ranks = []
+        for r in range(MULTI_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        equal4 = {
+            "fast": torch.equal(got["fast"], single["fast"].cpu()),
+            "volume": all(torch.equal(got["volume"][k],
+                                      single["volume"][k].cpu())
+                          for k in ("color", "depth", "normal", "alpha")),
+            "trace_segmented": all(
+                torch.equal(got["trace_segmented"][k], v.cpu())
+                for k, v in combined.items())}
+        hv4, hn4, hc4 = (x.numpy() for x in got["mc"])
+        cap = hv4.shape[0] // MULTI_RANKS
+        parts = np.concatenate([hv4[s * cap:s * cap + hc4[s]]
+                                for s in range(MULTI_RANKS)])
+        h_rows, h_keys = lattice_keys(parts, sc["vox"])
+        d_rows, d_keys = lattice_keys(dv[:n_tri].cpu().numpy(), sc["vox"])
+        equal4["mc_counts"] = int(hc4.sum()) == n_tri
+        equal4["mc_lattice_keys"] = bool(
+            h_keys.shape == d_keys.shape and (h_keys == d_keys).all())
+        mc_max_err = float(np.abs(h_rows - d_rows).max()) \
+            if equal4["mc_lattice_keys"] else None
+        if not all(equal4.values()):
+            raise RuntimeError(f"{MULTI_RANKS} gloo ranks against phase 37: "
+                               f"{equal4}")
+        for path, name in (("fast", "warp_lookup"),
+                           ("volume", "warp_lookup_multi")):
+            label = (f"{path} frame segmented, {MULTI_RANKS} gloo ranks "
+                     f"(phase 38)")
+            if any(rk["launches"][path][name] < 1 for rk in ranks):
+                raise RuntimeError(f"{label}: a rank did not launch {name}")
+            out["launches"][label] = {
+                k: sum(rk["launches"][path][k] for rk in ranks)
+                for k in ranks[0]["launches"][path]}
+            for k in ranks[0]["held"][path]:
+                hs = [rk["held"][path][k] for rk in ranks]
+                out["held"].setdefault(k, {})[label] = dict(
+                    calls=sum(h["calls"] for h in hs),
+                    bitwise_share=min(h["bitwise_share"] for h in hs),
+                    max_abs_err=max(h["max_abs_err"] for h in hs))
+        p38_s = time.perf_counter() - t0
+        rec["four_ranks_gloo"] = dict(
+            ranks=MULTI_RANKS, equal=equal4, mc_counts=hc4.tolist(),
+            mc_max_vertex_err=mc_max_err, ms=ranks[0]["ms"],
+            ms_by_rank=[rk["ms"] for rk in ranks],
+            launches_by_rank=[rk["launches"] for rk in ranks],
+            seconds=p38_s)
+        log("multichip 4 ranks", f"[{smi}] {MULTI_RANKS} gloo ranks on the "
+            f"one card (collectives through host memory; they share the "
+            f"card, so this shows the collectives' cost, not a speed-up): "
+            f"both segmented frames at {WIDTH}x{HEIGHT}, halo MC (counts "
+            f"{hc4.tolist()}, lattice keys equal, vertices within "
+            f"{mc_max_err:.3g}) and trace_segmented at (1, {MULTI_RANKS}) "
+            f"bitwise phase 37's; rank 0's ms a frame fast "
+            f"{ranks[0]['ms']['fast']:.3f}, volume "
+            f"{ranks[0]['ms']['volume']:.3f}; rows 2 and 3 held in every "
+            f"rank; {p38_s:.1f} s")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(rec, **out)
 
 
 def main() -> int:
@@ -3799,10 +4200,11 @@ def main() -> int:
     extraction = extraction_phases(dict(dev=dev, smi=smi, grid=grid,
                                         bench_camera=bench_camera))
     # 26. the linear tree's branches
+    volume_renderer = volume.pop("renderer")
     branches = linear_tree_phases(dict(
         dev=dev, smi=smi, grid=grid, pyr=pyr, tree=extraction.pop("tree"),
         bench_camera=bench_camera, exact_camera=exact_camera,
-        volume_renderer=volume.pop("renderer")))
+        volume_renderer=volume_renderer))
     for path, counts in branches.pop("launches").items():
         exact["launches"][path] = counts
     for k, by in branches.pop("held").items():
@@ -3836,7 +4238,18 @@ def main() -> int:
         if k in by_path:
             by_path[k]["extraction pipelines (phase 24)"] = v
 
-    # 37. lines
+    # 37-38. the multi-device paths: one NCCL rank, four gloo ranks
+    multichip = multichip_phases(dict(
+        dev=dev, smi=smi, grid=grid, vol=vol, shadow=shadow, layouts=layouts,
+        origin=origin, vox=vox, pyr=pyr, bench_camera=bench_camera,
+        volume_renderer=volume_renderer))
+    for path, counts in multichip.pop("launches").items():
+        for k, v in counts.items():
+            by_path[k][path] = v
+    for k, by in multichip.pop("held").items():
+        exact["held"].setdefault(k, {}).update(by)
+
+    # 39. lines
     held = exact["held"]
     record = {"kernels": [{
         "name": "warp_frame",
@@ -3934,6 +4347,7 @@ def main() -> int:
         "linear_tree_branches": branches,
         "mesh": mesh["mesh"],
         "app": app["app"],
+        "multichip": multichip,
         "wall_s": time.perf_counter() - T0,
         "card": smi}
     log("lines", f"[{smi}] the whole run took {record['wall_s']:.1f} s")

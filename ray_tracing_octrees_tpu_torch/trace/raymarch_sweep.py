@@ -406,9 +406,11 @@ _SCAL_EXT = 49   # 43..45 box_min, 46..48 box_max
 def _volume_frame_inputs(scene: VolumeSweepScene, grid_origin, camera_pos,
                          view, fov_deg: float, aspect: float,
                          inter_h: Optional[int] = None,
-                         inter_w: Optional[int] = None):
+                         inter_w: Optional[int] = None, layout=None):
     """Host-side frame set-up: sweep geometry, sticky table dims, layouts,
-    packed scalars. Returns (det_bf, cats, scal_np f32[49], meta)."""
+    packed scalars. Returns (det_bf, cats, scal_np f32[49], meta).
+    ``layout(scene, axis_world, flip, S, crop_lo)`` gives (det_bf, cats);
+    :func:`_layout_bundle` by default."""
     vox = scene.voxel_size
     origin = np.asarray(_host(grid_origin), np.float32)
     axis_world, flip, (S, A, B), eyes, window, crop_lo = _sweep_geometry(
@@ -429,7 +431,8 @@ def _volume_frame_inputs(scene: VolumeSweepScene, grid_origin, camera_pos,
         raise ValueError(f"inter_w {inter_w} is over {MAX_TABLE_W}, the "
                          f"widest table warp_lookup_multi reads")
     flip = bool(flip)
-    det_bf, cats = _layout_bundle(scene, axis_world, flip, S, crop_lo)
+    det_bf, cats = (layout or _layout_bundle)(scene, axis_world, flip, S,
+                                              crop_lo)
     origin_c = origin + _AXIS_SELECTORS[axis_world][0] * np.float32(
         crop_lo * vox)
     scal_np = np.zeros(_SCAL_EXT, np.float32)

@@ -192,27 +192,27 @@ def _sweep_geometry(volume_shape, grid_origin, voxel_size, camera_pos, view):
 # volume layouts
 # --------------------------------------------------------------------------
 
-def _relayout_sweep(vol_zyx: torch.Tensor, axis_world: int, flip: bool,
-                    sp: int, crop_lo: int = 0, s_keep: int = 0):
-    """(Z, Y, X) -> bf16 sweep order (S, A, B): cropped to
-    [crop_lo, crop_lo + s_keep), reversed when ``flip``, zero-padded to
-    ``sp`` slabs."""
-    v = vol_zyx.permute(*_TO_SWEEP[axis_world])
-    if crop_lo or (s_keep and s_keep != v.shape[0]):
-        v = v[crop_lo: crop_lo + (s_keep or v.shape[0])]
-    if flip:
-        v = v.flip(0)
-    out = torch.zeros((sp,) + tuple(v.shape[1:]), dtype=torch.bfloat16,
-                      device=v.device)
-    out[: v.shape[0]] = v
+def _layout_rows(vol_zyx: torch.Tensor, axis_world: int, flip: bool,
+                 S: int, crop_lo: int, lo: int, n: int) -> torch.Tensor:
+    """Rows [lo, lo + n) of the bf16 sweep-order layout (S, A, B) of
+    ``vol_zyx`` (Z, Y, X): slabs [crop_lo, crop_lo + S) along the sweep
+    axis, reversed when ``flip``, zero past S. Only those rows are copied,
+    so a slab segment of the sweep (``parallel/sharding.py``) holds its
+    own rows alone."""
+    v = vol_zyx.permute(*_TO_SWEEP[axis_world])[crop_lo:crop_lo + S]
+    out = torch.zeros((n,) + tuple(v.shape[1:]), dtype=torch.bfloat16,
+                      device=vol_zyx.device)
+    k = min(S, lo + n) - lo
+    if k > 0:
+        out[:k] = v[S - lo - k:S - lo].flip(0) if flip else v[lo:lo + k]
     return out
 
 
 def _layout_volume(volume: torch.Tensor, axis_world: int, flip: bool, S: int,
                    crop_lo: int = 0):
     """bf16 sweep-order volume, padded to a whole number of chunks."""
-    return _relayout_sweep(volume, axis_world, flip, S + (-S) % CH,
-                           crop_lo, S)
+    return _layout_rows(volume, axis_world, flip, S, crop_lo, 0,
+                        S + (-S) % CH)
 
 
 class SweepLayouts:
@@ -294,27 +294,32 @@ def _hats_from_coords(pa_all, pb_all, a_size: int, b_size: int):
 
 
 def _bilinear_hats(scal, sp: int, s_valid: int, a_size: int, b_size: int,
-                   inter_h: int, inter_w: int, flip: bool):
+                   inter_h: int, inter_w: int, flip: bool, o_base: int = 0):
     """The sweep's [sp, IH, A] and [sp, IW, B] bf16 linear-interpolation
     hat stacks: texel centres projected onto each slab."""
     return _hats_from_coords(
-        *_slab_coords(scal, sp, s_valid, inter_h, inter_w, flip), a_size,
-        b_size)
+        *_slab_coords(scal, sp, s_valid, inter_h, inter_w, flip, o_base),
+        a_size, b_size)
 
 
 def _sweep_core(vol_bf, scal, s_valid: int, a_size: int, b_size: int,
-                inter_h: int, inter_w: int, flip: bool, shadow_sw=None):
+                inter_h: int, inter_w: int, flip: bool, shadow_sw=None,
+                o_base: int = 0):
     """Hats + chunked first-hit loop.
 
     ``scal`` is the f32 per-frame scalar tensor on the volume's device.
-    Returns (first_o f32[IH, IW]: layout row of the first hit, s_valid + 1
-    on a miss; sh_first f32[IH, IW]: the shadow sample at that hit).
+    Returns (first_o f32[IH, IW]: GLOBAL layout row of the first hit,
+    s_valid + 1 on a miss; sh_first f32[IH, IW]: the shadow sample at that
+    hit). ``o_base`` offsets the local slab rows into global ones:
+    ``vol_bf`` holds rows [o_base, o_base + sp) of a larger sweep layout,
+    and the global first hit is the least first_o of the segments
+    (``parallel/sharding.sweep_packed_segmented``).
     """
     f32 = torch.float32
     dev = vol_bf.device
     sp = vol_bf.shape[0]
     ma_all, mb_all = _bilinear_hats(scal, sp, s_valid, a_size, b_size,
-                                    inter_h, inter_w, flip)
+                                    inter_h, inter_w, flip, o_base)
 
     big_o = float(s_valid + 1)
     first_o = torch.full((inter_h, inter_w), big_o, dtype=f32, device=dev)
@@ -330,7 +335,9 @@ def _sweep_core(vol_bf, scal, s_valid: int, a_size: int, b_size: int,
             # first slab of the chunk that hits (argmax returns the first
             # maximum; bool input is not accepted, hence the cast)
             am = torch.argmax(hits.to(torch.uint8), dim=0)
-            cand = torch.where(hits.any(dim=0), (am + c0).to(f32), big_o)
+            # the global row, as an integer sum: exact, one op
+            cand = torch.where(hits.any(dim=0),
+                               (am + (c0 + int(o_base))).to(f32), big_o)
             upd = cand < first_o
             if shadow_sw is not None:
                 hbs = torch.einsum("cab,cha->cbh", shadow_sw[c0:c0 + CH], ma)
@@ -538,18 +545,27 @@ def _frame_setup(layouts, origin, vox, camera_pos, view, fov_deg, aspect,
     """One pose's sweep, set up on the host: (sweep axis, flip, (S, A, B),
     the table window, the frame scalars f32[43], and the volume's and the
     shadow's sweep-order layouts, the shadow's None without one)."""
+    axis_world, flip, (S, A, B), window, scal_np, crop_lo = _frame_geometry(
+        layouts.volume.shape, origin, vox, camera_pos, view, fov_deg, aspect,
+        light_dir, base_color, ambient)
+    vol_bf = layouts.get("volume", axis_world, flip, S, crop_lo)
+    shv = layouts.get("shadow", axis_world, flip, S, crop_lo) \
+        if layouts.shadow is not None else None
+    return axis_world, flip, (S, A, B), window, scal_np, vol_bf, shv
+
+
+def _frame_geometry(volume_shape, origin, vox, camera_pos, view, fov_deg,
+                    aspect, light_dir, base_color, ambient):
+    """The host half of :func:`_frame_setup`: (sweep axis, flip, (S, A, B),
+    the table window, the frame scalars f32[43], crop_lo)."""
     axis_world, flip, (S, A, B), eyes, window, crop_lo = _sweep_geometry(
-        layouts.volume.shape, origin, vox, camera_pos, view)
+        volume_shape, origin, vox, camera_pos, view)
     origin_c = origin + _AXIS_SELECTORS[axis_world][0] * np.float32(crop_lo * vox)
     scal_np = _frame_scalars_np(
         *eyes[:3], eyes[3], *window, fov_deg, aspect, vox, S,
         origin_c, np.asarray(camera_pos, np.float32),
         view, light_dir, base_color, ambient)
-    flip = bool(flip)
-    vol_bf = layouts.get("volume", axis_world, flip, S, crop_lo)
-    shv = layouts.get("shadow", axis_world, flip, S, crop_lo) \
-        if layouts.shadow is not None else None
-    return axis_world, flip, (S, A, B), window, scal_np, vol_bf, shv
+    return axis_world, bool(flip), (S, A, B), window, scal_np, crop_lo
 
 
 def _scene_layouts(volume, shadow_vol, layouts, dev) -> SweepLayouts:
@@ -690,15 +706,12 @@ def sweep_first_hit(
     layouts = _scene_layouts(volume, ..., layouts, dev)
     origin = np.asarray(_host(grid_origin), np.float32)
     vox = float(_host(voxel_size))
-    axis_world, flip, (S, A, B), eyes, window, crop_lo = _sweep_geometry(
-        layouts.volume.shape, origin, vox, camera_pos, view)
-    origin_c = origin + _AXIS_SELECTORS[axis_world][0] * np.float32(crop_lo * vox)
-    scal_np = _frame_scalars_np(
-        *eyes[:3], eyes[3], *window, fov_deg, aspect, vox, S, origin_c,
-        np.asarray(camera_pos, np.float32), view)
+    axis_world, flip, (S, A, B), _, scal_np, crop_lo = _frame_geometry(
+        layouts.volume.shape, origin, vox, camera_pos, view, fov_deg, aspect,
+        (0, 0, 0), (0, 0, 0), (0, 0, 0))
     scal = torch.as_tensor(scal_np, device=dev)
-    vol_bf = layouts.get("volume", axis_world, bool(flip), S, crop_lo)
-    packed = _sweep_all(vol_bf, scal, S, A, B, inter_h, inter_w, bool(flip))
+    vol_bf = layouts.get("volume", axis_world, flip, S, crop_lo)
+    packed = _sweep_all(vol_bf, scal, S, A, B, inter_h, inter_w, flip)
     lin, behind, dirs, d_s_n = _warp_setup(
         scal, axis_world, inter_h, inter_w, width, height,
         torch.as_tensor(_view_consts(scal_np), device=dev))

@@ -1050,3 +1050,67 @@ def test_pipelined_two_streams_equal_the_loop(scene):
         ref = slab_sweep.render_fast_frame(vol, sv, origin, vox, p, v, 45.0,
                                            W / H, W, H, fused=False, **kw)
         assert torch.equal(f, ref)
+
+
+@pytest.fixture(scope="module")
+def nccl_world_1(tmp_path_factory):
+    """A world-1 NCCL group (a file:// store in a temporary directory) and
+    a one-axis ("sp",) mesh on the card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ray_tracing_octrees_tpu_torch.parallel import initialize_distributed
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL and the kernels have no CPU "
+                    "mode")
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    assert initialize_distributed(f"file://{store}", 1, 0)
+    assert dist.get_backend() == "nccl"
+    yield init_device_mesh("cuda", (1,), mesh_dim_names=("sp",))
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("pose", ["exterior", "below", "interior"])
+def test_sweep_frame_segmented_nccl_world_1(scene, nccl_world_1, pose):
+    """The slab-segmented fast frame on a world-1 NCCL group equals
+    render_fast_frame(fused=False) bitwise, through warp_lookup."""
+    from ray_tracing_octrees_tpu_torch.parallel.sharding import (
+        sweep_frame_segmented,
+    )
+
+    g, vol, sv, lay = scene
+    cam = _camera(pose)
+    origin, vox = g.origin.cpu().numpy(), float(g.voxel_size.cpu())
+    args = (vol, sv, origin, vox, cam.get_pos(), cam.get_view(), 45.0,
+            W / H, W, H)
+    before = warp_kernel.warp_lookup.launches
+    got = sweep_frame_segmented(nccl_world_1, *args,
+                                light_dir=tuple(-c for c in TO_LIGHT),
+                                layouts=lay)
+    assert warp_kernel.warp_lookup.launches == before + 1
+    ref = slab_sweep.render_fast_frame(*args,
+                                       light_dir=tuple(-c for c in TO_LIGHT),
+                                       layouts=lay, fused=False)
+    assert torch.equal(got, ref)
+
+
+def test_volume_frame_segmented_nccl_world_1(volume_pair, nccl_world_1):
+    """The slab-segmented volume frame on a world-1 NCCL group equals
+    render_volume_frame bitwise, through warp_lookup_multi."""
+    from ray_tracing_octrees_tpu_torch.parallel.sharding import (
+        volume_frame_segmented,
+    )
+    from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep as rs
+
+    scene = volume_pair["cuda"].sweep_scene()
+    g = make_sphere_grid(32, device="cpu")
+    cam = Camera(theta=0.5, phi=0.8, radius=2.2)
+    args = (g.origin.numpy(), cam.get_pos(), cam.get_view(), 45.0, W / H, W,
+            H)
+    before = warp_kernel.warp_lookup_multi.launches
+    got = volume_frame_segmented(nccl_world_1, scene, *args, time_value=0.25)
+    assert warp_kernel.warp_lookup_multi.launches == before + 1
+    ref = rs.render_volume_frame(scene, *args, time_value=0.25)
+    for k in ("color", "depth", "normal", "alpha"):
+        assert torch.equal(got[k], ref[k]), k
