@@ -236,12 +236,28 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               (MC by counts and by triangles as multisets of lattice
               keys); rows 2 and 3 counted and held in every rank; rank 0's
               ms a frame (the ranks share the card: the collectives' cost)
-  39. lines   the kernels JSON line (each kernel's calls held on the
+  39. ladder  the config ladder (benchmarks.config1 ... config6 at the JAX
+              ladder's sizes: MC on the 64^3 sphere, trace_octree and
+              sweep_first_hit at 512x512, adaptive DC or the skipped line,
+              the mesh frame and the LBVH oracle, the 3840x2160 fly-through,
+              the volume frames and oracles), each config with rows 1-3's
+              counts set to 0 before and read after and every call of them
+              held bitwise against its plain version; each JSON row logged
+              and kept; no row may carry an error; the phase's wall time
+  40. entry   graft_entry.entry()'s step on the card (ms, launches) against
+              the same step on the CPU (equal hit masks, colours within
+              1e-4 on 99.9 % of hits: the card's rays differ by an ulp);
+              dryrun_multichip(1) on a world-1 NCCL group and
+              dryrun_multichip(4) on gloo ranks sharing the card, each rank
+              holding its sharded and segmented frames to the one-device
+              frames and reporting its launches
+  41. lines   the kernels JSON line (each kernel's calls held on the
               exact tracers', the volume frame's, the linear tree's, the
               mesh frames', the app's, the pipeline's, the CLI's, the
-              demo's and the segmented frames' paths under
-              "held_on_paths"; the extraction paths' launches, all 0), the
-              whole run's wall time, the nvidia-smi line, and last the
+              demo's, the segmented frames' and the ladder's paths under
+              "held_on_paths"; the extraction paths' launches, all 0; the
+              ladder's and the entry points' launches by path), the whole
+              run's wall time, the nvidia-smi line, and last the
               {"ok": true, "device": {...}} line
 
 Imports nothing of JAX or of the JAX package. Without a CUDA device, or
@@ -3631,6 +3647,152 @@ def multichip_phases(ctx: dict) -> dict:
     return dict(rec, **out)
 
 
+# phase 40's bar for entry()'s step, card against CPU: colours within
+# tests/test_torch_dda.py's 1e-4 on this share of the hit pixels
+ENTRY_TOL = 1e-4
+ENTRY_SHARE = 0.999
+# the ladder's configs whose calls launch each row kernel (phase 39)
+LADDER_KERNELS = {"warp_frame": (5,), "warp_lookup": (2, 4),
+                  "warp_lookup_multi": (6,)}
+
+
+def ladder_phase(ctx: dict) -> dict:
+    """Phase 39: the config ladder (benchmarks.config1 ... config6 at the
+    JAX ladder's sizes) on the card, each config under
+    :func:`count_and_hold`, so every call of rows 1-3 is counted and held
+    bitwise against its plain version (the row times carry the hold's
+    output copy); every row logged and kept. Without the scene cache config
+    3 must print the JAX ladder's skipped line and configs 4-6 run on the
+    128^3 sphere; no row may carry an error, config 5's rows are 3840x2160,
+    and each row kernel must launch in the configs that call it. Returns
+    the record's section with the launches and held calls by path."""
+    from ray_tracing_octrees_tpu_torch import benchmarks
+    from ray_tracing_octrees_tpu_torch.trace import raymarch_sweep as rs
+    from ray_tracing_octrees_tpu_torch.trace import slab_sweep
+
+    dev, smi = ctx["dev"], ctx["smi"]
+    targets = [(slab_sweep, "warp_frame"), (slab_sweep, "warp_lookup"),
+               (rs, "warp_lookup_multi")]
+    rec = {"card": smi, "rows": [], "configs": {}}
+    out = {"launches": {}, "held": {}}
+    t0 = time.perf_counter()
+    for i in range(1, 7):
+        fn = getattr(benchmarks, f"config{i}")
+        label = f"ladder config {i} (phase 39)"
+        t = time.perf_counter()
+        rows, launched, held = count_and_hold(
+            label, lambda fn=fn: fn(device=dev), targets)
+        secs = time.perf_counter() - t
+        out["launches"][label] = launched
+        for k, h in held.items():
+            out["held"].setdefault(k, {})[label] = h
+        rec["configs"][i] = dict(seconds=secs, launches=launched, held=held)
+        rec["rows"] += rows
+        for row in rows:
+            log("ladder", f"[{smi}] config {i}: {json.dumps(row)}")
+        log("ladder", f"config {i}: {secs:.1f} s; row-kernel launches "
+            f"{launched}; held {held}")
+    rows = rec["rows"]
+    if any("error" in r for r in rows):
+        raise RuntimeError(f"a ladder row carries an error: {rows}")
+    if not benchmarks._scene_path(None):
+        if rows[2] != {"config": "calgary_adaptive_dc",
+                       "skipped": "scene cache missing"}:
+            raise RuntimeError(f"config 3 without a scene cache: {rows[2]}")
+        scenes = {r["scene"] for r in rows if "scene" in r}
+        if scenes != {"sphere128"}:
+            raise RuntimeError(f"configs 4-6 without a scene cache: {scenes}")
+    fly = [r for r in rows if r["config"].startswith("calgary_4k_flythrough")]
+    if not fly or {r["resolution"] for r in fly} != {"3840x2160"} or \
+            fly[0]["config"] != "calgary_4k_flythrough_exterior":
+        raise RuntimeError(f"config 5's rows: {fly}")
+    for k, configs in LADDER_KERNELS.items():
+        for i in configs:
+            if rec["configs"][i]["launches"][k] < 1:
+                raise RuntimeError(f"ladder config {i} launched no {k}")
+    rec["seconds"] = time.perf_counter() - t0
+    log("ladder", f"[{smi}] {len(rows)} rows, every row-kernel call held "
+        f"bitwise; the phase took {rec['seconds']:.1f} s")
+    return dict(rec, **out)
+
+
+def entry_phases(ctx: dict) -> dict:
+    """Phase 40: the entry points of graft_entry.py. entry()'s step on the
+    card, its ms (best of 3 windows, CUDA events) and its row-kernel
+    launches (none: the pyramid DDA is plain PyTorch), against the same
+    step on the CPU: equal hit masks, colours within ENTRY_TOL on at least
+    ENTRY_SHARE of the hit pixels (generate_rays' view inverse and
+    reductions round otherwise on the card, so a grazing ray may enter
+    the neighbouring leaf and take its normal); misses black on both.
+    Then dryrun_multichip(1) on a world-1 NCCL
+    group and dryrun_multichip(MULTI_RANKS) on gloo ranks sharing the
+    card (each spawned rank holds its sharded and segmented frames to the
+    one-device frames at 1e-5 and reports its launches; every rank must
+    launch warp_lookup and warp_lookup_multi). Returns the record's
+    section with the launches by path."""
+    import torch
+
+    from ray_tracing_octrees_tpu_torch import graft_entry
+
+    dev, smi = ctx["dev"], ctx["smi"]
+    rec = {"card": smi}
+    out = {"launches": {}, "held": {}}
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    label = "entry step (phase 40)"
+    img, launched, _ = count_and_hold(label, lambda: fn(*args), [])
+    out["launches"][label] = launched
+    step_ms = cuda_ms(lambda: fn(*args), 5)
+    fn_c, args_c = graft_entry.entry(device="cpu")
+    img_c = fn_c(*args_c)
+    hit = img_c[..., :3].amax(-1) > 0
+    diff = (img.cpu() - img_c).abs().amax(-1)
+    cmp = dict(
+        shape=tuple(img.shape),
+        hit_masks_equal=torch.equal(img[..., :3].amax(-1).cpu() > 0, hit),
+        hit_pixels=int(hit.sum()),
+        misses_equal=torch.equal(img.cpu()[~hit], img_c[~hit]),
+        pixels_unequal=int((diff > 0).sum()),
+        pixels_over_tol=int((diff > ENTRY_TOL).sum()),
+        share_within_tol=float((diff[hit] <= ENTRY_TOL).float().mean()),
+        max_abs_err=float(diff.max()))
+    if not (cmp["hit_masks_equal"] and cmp["misses_equal"]
+            and cmp["share_within_tol"] >= ENTRY_SHARE):
+        raise RuntimeError(f"entry() step, card against CPU: {cmp}")
+    rec["entry"] = dict(cmp, ms=step_ms, launches=launched,
+                        device=str(args[1].device))
+    log("entry", f"[{smi}] entry() step on {rec['entry']['device']}: "
+        f"{cmp['shape']}, {step_ms:.3f} ms (best of 3 windows, CUDA "
+        f"events); against the CPU: hit masks equal ({cmp['hit_pixels']} "
+        f"hits), {cmp['pixels_unequal']} pixels unequal, "
+        f"{cmp['pixels_over_tol']} over {ENTRY_TOL} (largest "
+        f"{cmp['max_abs_err']:.3g}); row-kernel launches {launched}")
+    rec["dryrun"] = {}
+    for n in (1, MULTI_RANKS):
+        t = time.perf_counter()
+        dr = graft_entry.dryrun_multichip(n)
+        secs = time.perf_counter() - t
+        want = "nccl" if n <= torch.cuda.device_count() else "gloo"
+        if dr["backend"] != want or dr["device"] != "cuda":
+            raise RuntimeError(f"dryrun_multichip({n}): {dr}")
+        for r, counts in enumerate(dr["launches"]):
+            if counts["warp_lookup"] < 1 or counts["warp_lookup_multi"] < 1:
+                raise RuntimeError(f"dryrun_multichip({n}) rank {r} launched "
+                                   f"{counts}")
+        summed = {k: sum(c[k] for c in dr["launches"])
+                  for k in graft_entry.ROW_KERNELS}
+        out["launches"][f"dryrun_multichip({n}), {dr['backend']} (phase "
+                        f"40)"] = summed
+        rec["dryrun"][n] = dict(dr, seconds=secs)
+        log("entry", f"[{smi}] dryrun_multichip({n}): {n} {dr['backend']} "
+            f"rank(s) on the card, the sharded and segmented frames within "
+            f"1e-5 of the one-device frames in every rank; launches by rank "
+            f"{dr['launches']}; {secs:.1f} s")
+    rec["seconds"] = time.perf_counter() - t0
+    log("entry", f"the phase took {rec['seconds']:.1f} s")
+    return dict(rec, **out)
+
+
 def main() -> int:
     import torch
 
@@ -4249,7 +4411,17 @@ def main() -> int:
     for k, by in multichip.pop("held").items():
         exact["held"].setdefault(k, {}).update(by)
 
-    # 39. lines
+    # 39. the config ladder; 40. the entry points
+    ladder = ladder_phase(dict(dev=dev, smi=smi))
+    entries = entry_phases(dict(dev=dev, smi=smi))
+    for section in (ladder, entries):
+        for path, counts in section.pop("launches").items():
+            for k, v in counts.items():
+                by_path[k][path] = v
+        for k, by in section.pop("held").items():
+            exact["held"].setdefault(k, {}).update(by)
+
+    # 41. lines
     held = exact["held"]
     record = {"kernels": [{
         "name": "warp_frame",
@@ -4348,6 +4520,8 @@ def main() -> int:
         "mesh": mesh["mesh"],
         "app": app["app"],
         "multichip": multichip,
+        "ladder": ladder,
+        "entry_points": entries,
         "wall_s": time.perf_counter() - T0,
         "card": smi}
     log("lines", f"[{smi}] the whole run took {record['wall_s']:.1f} s")

@@ -20,8 +20,9 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Placement, Replicate, Shard
 
 from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
@@ -33,14 +34,18 @@ def make_mesh(
     tp: Optional[int] = None,
     device: DeviceLike = None,
 ) -> DeviceMesh:
-    """A (dp, tp) mesh over the ranks of the process group.
+    """A (dp, tp) mesh over ranks [0, n) of the process group, as the
+    reference's mesh over the first ``n_devices`` devices.
 
-    Defaults: n = the group's world size (``n_devices``, when given, must
-    equal it); tp = 2 when n is even and > 1, else 1; dp = n / tp. Rays
-    ride ``dp``; grid Z-slabs ride ``tp``. Rank r sits at (r // tp,
-    r % tp). The mesh's device type is CUDA unless ``device="cpu"``;
-    without CUDA and without that this raises. Every rank of the group
-    calls it; the group must have been started
+    Defaults: n = the group's world size; tp = 2 when n is even and > 1,
+    else 1; dp = n / tp. Rays ride ``dp``; grid Z-slabs ride ``tp``. Rank
+    r < n sits at (r // tp, r % tp). n above the world size raises. Every
+    rank of the group calls it, since creating the axes' sub-groups is
+    collective; a rank at or past n gets the mesh with ``get_coordinate()``
+    None, and the :mod:`~ray_tracing_octrees_tpu_torch.parallel.sharding`
+    functions return None there without joining a collective. The mesh's
+    device type is CUDA unless ``device="cpu"``; without CUDA and without
+    that this raises. The group must have been started
     (:func:`~ray_tracing_octrees_tpu_torch.parallel.distributed.
     initialize_distributed`).
     """
@@ -55,10 +60,11 @@ def make_mesh(
     if not dist.is_initialized():
         raise RuntimeError("no process group: call initialize_distributed "
                            "first")
-    if n != dist.get_world_size():
-        raise ValueError(f"n_devices={n} != the group's "
+    if n > dist.get_world_size():
+        raise ValueError(f"n_devices={n} > the group's "
                          f"{dist.get_world_size()} ranks")
-    return init_device_mesh(dev.type, (dp, tp), mesh_dim_names=("dp", "tp"))
+    return DeviceMesh(dev.type, torch.arange(n).reshape(dp, tp),
+                      mesh_dim_names=("dp", "tp"))
 
 
 def ray_sharding(mesh: DeviceMesh) -> List[Placement]:

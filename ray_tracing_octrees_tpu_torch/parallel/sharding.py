@@ -6,14 +6,20 @@ inputs, keeps only its shard (its ``dp`` slice of the rays, its ``tp`` /
 ``sp`` rows of the grid or of the sweep layout) and returns the global
 result on every rank, all-gathered as JAX's global arrays are. The mesh
 (:mod:`~ray_tracing_octrees_tpu_torch.parallel.mesh`) names the device:
-CUDA, or the CPU where the caller built a CPU mesh.
+CUDA, or the CPU where the caller built a CPU mesh. On a rank outside the
+mesh (``make_mesh`` over fewer ranks than the group) every function
+returns None and joins no collective.
 
 The reference's two idioms, both producing the single-device result:
 
 1. GSPMD, here DTensor: :func:`trace_sharded` and
    :func:`render_image_sharded` place the grid Z-sharded over ``tp`` and
-   the rays over ``dp`` with ``distribute_tensor``, and take the whole
-   grid with ``full_tensor()``: the all-gather XLA inserts.
+   the rays over ``dp`` with ``distribute_tensor`` (each rank cuts its
+   shard from its own full inputs: ``src_data_rank=None``, no scatter),
+   and all-gather the grid's local shards over ``tp``: the all-gather
+   XLA inserts. (``full_tensor()`` would gather through the functional
+   collectives, whose wait segfaults with gloo on CUDA tensors, the
+   layout of several ranks on one card.)
 2. Explicit collectives, as ``shard_map``: :func:`trace_shardmap`
    all-gathers the Z-slabs; :func:`trace_segmented`, the slab-segmented
    fast and volume frames and :func:`marching_cubes_halo` never gather the
@@ -30,6 +36,7 @@ exchange's tensors to the host.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -62,10 +69,37 @@ _BIG = 3e38   # the miss sentinel of trace_segmented's min-combine
 # mesh axes and collectives
 # --------------------------------------------------------------------------
 
+def _on_mesh_ranks(fn):
+    """``fn(mesh, ...)`` on the ranks ``mesh`` holds; None on any other
+    rank of the group, which then joins none of ``fn``'s collectives (the
+    ranks of a mesh smaller than the group take them alone)."""
+    @functools.wraps(fn)
+    def on_ranks(mesh: DeviceMesh, *args, **kwargs):
+        if mesh.get_coordinate() is None:
+            return None
+        return fn(mesh, *args, **kwargs)
+    return on_ranks
+
+
 def _axis(mesh: DeviceMesh, name: str):
     """(process group, this rank's index, size) of mesh axis ``name``."""
     size = mesh.shape[mesh.mesh_dim_names.index(name)]
     return mesh.get_group(name), mesh.get_local_rank(name), size
+
+
+def _distribute(t: torch.Tensor, mesh: DeviceMesh, placements):
+    """``t`` as a DTensor with ``placements``, each rank's shard cut from
+    its own copy of the full ``t`` (every rank passes the same inputs),
+    so placing it sends nothing."""
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+
+def _whole_pyramid(occ: torch.Tensor, mesh: DeviceMesh):
+    """The pyramid of the whole grid: ``occ`` placed Z-sharded over tp,
+    its shards all-gathered in rank order."""
+    tp_g, _, tp = _axis(mesh, "tp")
+    local = _distribute(occ, mesh, grid_z_sharding(mesh)).to_local()
+    return build_pyramid(_all_gather(local, tp_g, tp))
 
 
 def _device(mesh: DeviceMesh) -> torch.device:
@@ -157,27 +191,27 @@ def _slab_origin(g0, vs, zi: int, slab_z: int):
 # the octree tracer, sharded
 # --------------------------------------------------------------------------
 
+@_on_mesh_ranks
 def trace_sharded(mesh: DeviceMesh, occ, origins, directions, grid_origin,
                   voxel_size, max_steps: int = 512) -> dict:
     """GSPMD-style sharded trace: rays over dp, occupancy Z-slabs over tp.
 
-    The grid is placed Z-sharded (``distribute_tensor``) and taken whole
-    by ``full_tensor()``, the all-gather XLA inserts; each rank traces its
+    The grid is placed Z-sharded (``distribute_tensor``) and its shards
+    all-gathered over tp, the all-gather XLA inserts; each rank traces its
     dp slice of the rays. Returns the trace dict over the rays padded to
     a multiple of dp, on every rank.
     """
     occ, o, d, g0, vs = _inputs(mesh, occ, origins, directions,
                                 grid_origin, voxel_size)
-    occ_s = distribute_tensor(occ, mesh, grid_z_sharding(mesh))
-    o_s = distribute_tensor(o, mesh, ray_sharding(mesh))
-    d_s = distribute_tensor(d, mesh, ray_sharding(mesh))
-    pyr = build_pyramid(occ_s.full_tensor())
-    res = trace_octree(pyr, o_s.to_local(), d_s.to_local(), g0, vs,
-                       max_steps=max_steps)
+    o_s = _distribute(o, mesh, ray_sharding(mesh))
+    d_s = _distribute(d, mesh, ray_sharding(mesh))
+    res = trace_octree(_whole_pyramid(occ, mesh), o_s.to_local(),
+                       d_s.to_local(), g0, vs, max_steps=max_steps)
     dp_g, _, dp = _axis(mesh, "dp")
     return _gather_dict(res, dp_g, dp)
 
 
+@_on_mesh_ranks
 def trace_shardmap(mesh: DeviceMesh, occ, origins, directions, grid_origin,
                    voxel_size, max_steps: int = 512) -> dict:
     """Explicit-collective trace: all-gather the grid's Z-slabs over tp,
@@ -192,6 +226,7 @@ def trace_shardmap(mesh: DeviceMesh, occ, origins, directions, grid_origin,
     return _gather_dict(res, dp_g, dp)
 
 
+@_on_mesh_ranks
 def render_image_sharded(
     mesh: DeviceMesh,
     occ,
@@ -211,10 +246,9 @@ def render_image_sharded(
     n_rays = int(origins.shape[0])
     occ, o, d, g0, vs = _inputs(mesh, occ, origins, directions,
                                 grid_origin, voxel_size)
-    occ_s = distribute_tensor(occ, mesh, grid_z_sharding(mesh))
-    o_l = distribute_tensor(o, mesh, ray_sharding(mesh)).to_local()
-    d_l = distribute_tensor(d, mesh, ray_sharding(mesh)).to_local()
-    pyr = build_pyramid(occ_s.full_tensor())
+    o_l = _distribute(o, mesh, ray_sharding(mesh)).to_local()
+    d_l = _distribute(d, mesh, ray_sharding(mesh)).to_local()
+    pyr = _whole_pyramid(occ, mesh)
     res = trace_octree(pyr, o_l, d_l, g0, vs, max_steps=max_steps)
     color = lambert_shade(res["normal"], res["hit"], light_dir, base_color,
                           ambient)
@@ -231,6 +265,7 @@ def render_image_sharded(
     return _all_gather(img, dp_g, dp)[:n_rays]
 
 
+@_on_mesh_ranks
 def trace_segmented(mesh: DeviceMesh, occ, origins, directions, grid_origin,
                     voxel_size, max_steps: int = 512) -> dict:
     """Sequence-parallel tracing: rays split into per-rank Z-SEGMENTS.
@@ -281,6 +316,7 @@ def _segment(S: int, n: int, r: int) -> Tuple[int, int]:
     return r * sp_l, sp_l
 
 
+@_on_mesh_ranks
 def sweep_packed_segmented(
     mesh: DeviceMesh,
     volume,             # f32[Z, Y, X]
@@ -352,6 +388,7 @@ def sweep_packed_segmented(
         inter_w=inter_w, has_shadow=has_shadow, scal_np=scal_np)
 
 
+@_on_mesh_ranks
 def sweep_frame_segmented(
     mesh: DeviceMesh,
     volume,
@@ -392,6 +429,7 @@ def sweep_frame_segmented(
                             meta["has_shadow"])
 
 
+@_on_mesh_ranks
 def volume_frame_segmented(
     mesh: DeviceMesh,
     scene: rs.VolumeSweepScene,
@@ -462,6 +500,7 @@ def volume_frame_segmented(
 # Marching Cubes on Z-slab shards
 # --------------------------------------------------------------------------
 
+@_on_mesh_ranks
 def marching_cubes_halo(mesh: DeviceMesh, occ, grid_origin, voxel_size,
                         max_triangles_per_shard: int):
     """Tensor-parallel Marching Cubes on Z-slab-resident grids.

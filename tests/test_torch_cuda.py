@@ -12,7 +12,7 @@ its colours), the LBVH and the dense voxelizer on the card against the
 CPU; and the rasterizer, the wireframe and the app's extraction frames
 on the card against the CPU, the app's volume and ray-trace frames with
 their kernels held, and the pipelined fast frames on two streams equal
-to the per-pose loop.
+to the per-pose loop; the entry step and two configs of the ladder.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (a
 CUDA kernel has no CPU mode). The file imports nothing of JAX, so it also
@@ -1114,3 +1114,42 @@ def test_volume_frame_segmented_nccl_world_1(volume_pair, nccl_world_1):
     ref = rs.render_volume_frame(scene, *args, time_value=0.25)
     for k in ("color", "depth", "normal", "alpha"):
         assert torch.equal(got[k], ref[k]), k
+
+
+def test_entry_step_card_equals_cpu():
+    """graft_entry.entry()'s step on the card against the same step on
+    the CPU: equal hit masks, misses equal, colours within 1e-4 on 99.9 %
+    of the hits (generate_rays' view inverse rounds otherwise on the card,
+    so a grazing ray may enter the neighbouring leaf)."""
+    from ray_tracing_octrees_tpu_torch import graft_entry
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fn, args = graft_entry.entry()
+    assert args[1].is_cuda
+    got = fn(*args)
+    fn_c, args_c = graft_entry.entry(device="cpu")
+    want = fn_c(*args_c)
+    got = got.cpu()
+    hit = want[..., :3].amax(-1) > 0
+    assert torch.equal(got[..., :3].amax(-1) > 0, hit)
+    assert torch.equal(got[~hit], want[~hit])
+    diff = (got - want).abs().amax(-1)[hit]
+    assert float((diff <= 1e-4).float().mean()) >= 0.999
+
+
+def test_ladder_configs_on_the_card():
+    """Configs 1 and 5 of the ladder on the card: config 1 gives the CPU's
+    (and JAX's) counts; config 5 at a small frame launches warp_frame once
+    a frame, warm-ups included."""
+    from ray_tracing_octrees_tpu_torch import benchmarks
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    (row,) = benchmarks.config1()
+    assert (row["triangles"], row["octree_nodes"]) == (30952, 23561)
+    before = warp_kernel.warp_frame.launches
+    rows = benchmarks.config5(n=64, size=(640, 360), reps=2, scene_path="")
+    assert [r["config"] for r in rows] == ["calgary_4k_flythrough_exterior",
+                                           "calgary_4k_flythrough_interior"]
+    assert warp_kernel.warp_frame.launches - before == 3 * (4 + 2)

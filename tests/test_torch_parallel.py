@@ -78,13 +78,22 @@ def _rank_main(rank: int, store: str, inp_path: str, out_dir: str):
     m8 = tmesh.make_mesh(device="cpu")
     m24 = tmesh.make_mesh(8, dp=2, tp=4, device="cpu")
     m18 = tmesh.make_mesh(8, dp=1, tp=8, device="cpu")
+    m4 = tmesh.make_mesh(4, device="cpu")
     sp = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("sp",))
-    out["mesh_shapes"] = [tuple(m.shape) for m in (m8, m24, m18)]
+    out["mesh_shapes"] = [tuple(m.shape) for m in (m8, m24, m18, m4)]
+    try:
+        tmesh.make_mesh(2 * WORLD, device="cpu")
+        out["sub_mesh_above_group"] = None
+    except ValueError as e:
+        out["sub_mesh_above_group"] = str(e)
 
     g16 = inp["g16"]
     rays = (g16["occ"], inp["o"], inp["d"], g16["origin"], g16["vs"])
     out["trace_sharded"] = sh.trace_sharded(m8, *rays, max_steps=128)
     out["trace_shardmap"] = sh.trace_shardmap(m8, *rays, max_steps=128)
+    # ranks 4-7 lie outside m4: None there, and no collective joined
+    out["sub_mesh_coordinate"] = m4.get_coordinate()
+    out["sub_mesh_trace"] = sh.trace_sharded(m4, *rays, max_steps=128)
     out["trace_segmented"] = sh.trace_segmented(m24, *rays, max_steps=128)
     for shadows in (True, False):
         out[f"render_{shadows}"] = sh.render_image_sharded(
@@ -214,6 +223,8 @@ def runs(tmp_path_factory):
     ref = dict(
         trace_sharded=np_dict(jsh.trace_sharded(m8, *rays, max_steps=128)),
         trace_shardmap=np_dict(jsh.trace_shardmap(m8, *rays, max_steps=128)),
+        sub_mesh_trace=np_dict(jsh.trace_sharded(make_mesh(4), *rays,
+                                                 max_steps=128)),
         trace_segmented=np_dict(jsh.trace_segmented(m24, *rays,
                                                     max_steps=128)),
         mc_halo=tuple(np.asarray(x) for x in jsh.marching_cubes_halo(
@@ -256,13 +267,37 @@ def test_every_rank_returns_the_global_result(runs):
     _, outs = runs
     for r, out in enumerate(outs[1:], 1):
         for k, v in out.items():
-            if k not in ("local_slice",) and not k.endswith("_single"):
+            if (k not in ("local_slice",) and not k.endswith("_single")
+                    and not k.startswith("sub_mesh")):
                 assert _same(v, outs[0][k]), (r, k)
 
 
 def test_make_mesh_shapes(runs):
     _, outs = runs
-    assert outs[0]["mesh_shapes"] == [(4, 2), (2, 4), (1, 8)]
+    assert outs[0]["mesh_shapes"] == [(4, 2), (2, 4), (1, 8), (2, 2)]
+
+
+def test_make_mesh_below_the_group(runs):
+    """make_mesh(4) in the 8-rank group: a (2, 2) mesh over ranks 0-3,
+    each of which gets JAX's make_mesh(4) trace (on its 8 virtual
+    devices) from trace_sharded at the bars of the full mesh's (hit and t
+    equal, normal within 1e-5); ranks 4-7 lie outside it and get None.
+    A mesh above the group's size raises."""
+    ref, outs = runs
+    want = ref["sub_mesh_trace"]
+    for r, out in enumerate(outs):
+        got = out["sub_mesh_trace"]
+        if r >= 4:
+            assert got is None and out["sub_mesh_coordinate"] is None, r
+            continue
+        assert tuple(out["sub_mesh_coordinate"]) == (r // 2, r % 2), r
+        np.testing.assert_array_equal(got["hit"].numpy(), want["hit"])
+        np.testing.assert_array_equal(got["t"].numpy(), want["t"])
+        np.testing.assert_allclose(got["normal"].numpy(), want["normal"],
+                                   rtol=0, atol=1e-5)
+        assert _same(got, outs[0]["sub_mesh_trace"]), r
+    assert want["hit"].any() and not want["hit"].all()
+    assert "n_devices=16 > the group's 8 ranks" in outs[0]["sub_mesh_above_group"]
 
 
 def test_make_mesh_rejects_a_bad_split():
