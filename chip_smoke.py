@@ -100,8 +100,11 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               warp_frame's, warp_lookup's and warp_lookup_multi's counts set
               to 0 before and read after (each must launch), every call of
               them held bitwise against its plain version on its inputs
-  18. card vs CPU  trace_octree_fast and the sweep-exact primary on the
-              32^3 sphere: equal hit masks and equal t
+  18. card vs CPU  generate_rays at 128x72 made on the card and on the
+              CPU, bitwise; trace_octree_fast on each device's own rays
+              (hit, t, point, normal bitwise) and the sweep-exact primary
+              (hit and t bitwise) on the 32^3 sphere; the host's time a
+              call of view_rotation and lu_inverse beside numpy's inverse
   19. volume init  VolumeRaycastRenderer(device="cuda").init on the 256^3
               sphere, each texture pass timed (build_mip_chain,
               precompute_volume, ambient_occlusion, build_skip_distance),
@@ -141,7 +144,8 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               under torch.profiler; every kernel's count must stay 0
               (extraction is plain PyTorch)
   25. extraction card vs CPU  on the 32^3 and 64^3 spheres: the tree and
-              node-id volume, MC and blocks bitwise; adaptive and uniform
+              node-id volume, MC and blocks bitwise; adaptive DC (also
+              with the non-default QEF_ALT / DC_ALT toggles) and uniform
               DC equal counts, vertices within 2e-6 and normals within 2e-4
               (the CPU tests' bars)
   26. linear tree  OctreeRayTracer.set_octree(tree=...) and update_frustum
@@ -245,8 +249,7 @@ Phases (each prints one flushed line; any failure raises, exit non-zero):
               held bitwise against its plain version; each JSON row logged
               and kept; no row may carry an error; the phase's wall time
   40. entry   graft_entry.entry()'s step on the card (ms, launches) against
-              the same step on the CPU (equal hit masks, colours within
-              1e-4 on 99.9 % of hits: the card's rays differ by an ulp);
+              the same step on the CPU, the whole image bitwise;
               dryrun_multichip(1) on a world-1 NCCL group and
               dryrun_multichip(4) on gloo ranks sharing the card, each rank
               holding its sharded and segmented frames to the one-device
@@ -274,6 +277,7 @@ import re
 import subprocess
 import sys
 import time
+import timeit
 
 T0 = time.perf_counter()
 
@@ -1437,11 +1441,17 @@ def exact_tracer_phases(ctx: dict) -> dict:
     s_vol = (small.occ > 0).to(torch.float32)
     pc = Camera(theta=0.9, phi=0.8, radius=2.0)
     sargs = (small.origin.numpy(), float(small.voxel_size))
-    o, d = generate_rays(128, 72, pc.get_pos(), pc.get_view(), 45.0, 128 / 72,
-                         device="cpu")
+    ray_args = (128, 72, pc.get_pos(), pc.get_view(), 45.0, 128 / 72)
+    o, d = generate_rays(*ray_args, device="cpu")
+    o_g, d_g = generate_rays(*ray_args, device=dev)
+    rays_eq = dict(origins=torch.equal(o_g.cpu(), o),
+                   directions=torch.equal(d_g.cpu(), d),
+                   directions_unequal=int((d_g.cpu() != d).sum()))
+    log("card vs CPU", f"generate_rays 128x72: origins equal "
+        f"{rays_eq['origins']}, directions equal {rays_eq['directions']} "
+        f"({rays_eq['directions_unequal']} components differ)")
     cpu = trace_octree_fast(s_lv, o, d, *sargs, ball_skip=True)
-    gpu = trace_octree_fast(s_lv.to(dev), o.to(dev), d.to(dev), *sargs,
-                            ball_skip=True)
+    gpu = trace_octree_fast(s_lv.to(dev), o_g, d_g, *sargs, ball_skip=True)
     pargs = (*sargs, pc.get_pos(), pc.get_view(), 128, 72, 45.0, 128 / 72)
     p_cpu = sweep_exact.trace_pixels_sweep_exact(s_vol, s_lv, *pargs,
                                                  device="cpu")
@@ -1450,15 +1460,28 @@ def exact_tracer_phases(ctx: dict) -> dict:
     equal = {}
     for name, a, b in (("trace_octree_fast", gpu, cpu),
                        ("sweep-exact primary", p_gpu, p_cpu)):
-        equal[name] = dict(hit=torch.equal(a["hit"].cpu(), b["hit"]),
-                           t=torch.equal(a["t"].cpu(), b["t"]),
-                           hits=int(b["hit"].sum()))
-        log("card vs CPU", f"{name}, 32^3 sphere 128x72: hit masks equal "
-            f"{equal[name]['hit']}, t equal {equal[name]['t']} "
+        keys = ("hit", "t", "point", "normal") if name == "trace_octree_fast" \
+            else ("hit", "t")
+        equal[name] = {k: torch.equal(a[k].cpu(), b[k]) for k in keys}
+        equal[name]["hits"] = int(b["hit"].sum())
+        log("card vs CPU", f"{name}, 32^3 sphere 128x72: equal "
+            f"{ {k: equal[name][k] for k in keys} } "
             f"({equal[name]['hits']} hits)")
-    if not all(v["hit"] and v["t"] for v in equal.values()):
-        raise RuntimeError(f"the card disagrees with the CPU: {equal}")
-    out["card_vs_cpu"] = equal
+    if not (rays_eq["origins"] and rays_eq["directions"] and all(
+            v for e in equal.values() for k, v in e.items() if k != "hits")):
+        raise RuntimeError(f"the card disagrees with the CPU: rays "
+                           f"{rays_eq}, {equal}")
+    # the host's share of every frame's rays: the view rotation (the
+    # reference's f32 LU inverse in scalar Python) beside numpy's inverse
+    view = np.asarray(pc.get_view(), np.float32)
+    host_us = {name: min(timeit.repeat(fn, number=200, repeat=5)) / 200 * 1e6
+               for name, fn in (
+                   ("view_rotation", lambda: wk.view_rotation(45.0, view)),
+                   ("lu_inverse", lambda: wk.lu_inverse(view)),
+                   ("np.linalg.inv", lambda: np.linalg.inv(view)))}
+    log("card vs CPU", "host time a call (µs, best of 5 x 200): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in host_us.items()))
+    out["card_vs_cpu"] = dict(equal, generate_rays=rays_eq, host_us=host_us)
     return out
 
 
@@ -1746,6 +1769,10 @@ SPHERE_COUNTS = dict(nodes=374921, leaves=328056, mc=493816, blocks=399372,
                      adaptive_dc=228288)
 # the CPU tests' bars for DC against a reference: vertices, normals
 DC_TOL = (2e-6, 2e-4)
+# phase 25's non-default QEF and DC toggles (the CPU tests' QEF_ALT and
+# DC_ALT, tests/test_torch_dual_contouring.py)
+QEF_ALT = dict(regularization=0.05, masspoint_mix=0.5)
+DC_ALT = dict(max_size_ratio=4, face_fan_divisions=1)
 N_QUERIES = 1 << 16   # seeded find_node queries (phase 23)
 # a frustum margin that culls part of the sphere's tree at the bench pose
 # (the CPU tests' margin; the config's margins, 50, 150 and 20, keep every
@@ -2002,6 +2029,8 @@ def extraction_phases(ctx: dict) -> dict:
     # 25. the card against the CPU on the 32^3 and 64^3 spheres
     import dataclasses
 
+    from ray_tracing_octrees_tpu_torch.config import DCConfig, QEFConfig
+
     cmp = {}
     for dim in (32, 64):
         gc = make_sphere_grid(dim, device="cpu")
@@ -2052,6 +2081,14 @@ def extraction_phases(ctx: dict) -> dict:
                                                    device="cpu"),
                            dc.dual_contour_uniform(gg, 65536, 262144,
                                                    device=dev)),
+            # the QEF and DC toggles away from their defaults
+            "adaptive_dc configs": tuple(
+                dc.adaptive_dual_contouring(g_, t_, node_id_vol=v_,
+                                            qef_cfg=QEFConfig(**QEF_ALT),
+                                            dc_cfg=DCConfig(**DC_ALT),
+                                            device=d)
+                for g_, t_, v_, d in ((gc, tc, vc, "cpu"),
+                                      (gg, tg, vg, dev))),
         }
         close = {}
         for k, (a, b) in dcs.items():
@@ -3647,10 +3684,6 @@ def multichip_phases(ctx: dict) -> dict:
     return dict(rec, **out)
 
 
-# phase 40's bar for entry()'s step, card against CPU: colours within
-# tests/test_torch_dda.py's 1e-4 on this share of the hit pixels
-ENTRY_TOL = 1e-4
-ENTRY_SHARE = 0.999
 # the ladder's configs whose calls launch each row kernel (phase 39)
 LADDER_KERNELS = {"warp_frame": (5,), "warp_lookup": (2, 4),
                   "warp_lookup_multi": (6,)}
@@ -3720,10 +3753,8 @@ def entry_phases(ctx: dict) -> dict:
     """Phase 40: the entry points of graft_entry.py. entry()'s step on the
     card, its ms (best of 3 windows, CUDA events) and its row-kernel
     launches (none: the pyramid DDA is plain PyTorch), against the same
-    step on the CPU: equal hit masks, colours within ENTRY_TOL on at least
-    ENTRY_SHARE of the hit pixels (generate_rays' view inverse and
-    reductions round otherwise on the card, so a grazing ray may enter
-    the neighbouring leaf and take its normal); misses black on both.
+    step on the CPU: the whole image bitwise (the rays, the DDA's normal
+    and the shading are elementwise f32 ops on both).
     Then dryrun_multichip(1) on a world-1 NCCL
     group and dryrun_multichip(MULTI_RANKS) on gloo ranks sharing the
     card (each spawned rank holds its sharded and segmented frames to the
@@ -3749,24 +3780,21 @@ def entry_phases(ctx: dict) -> dict:
     diff = (img.cpu() - img_c).abs().amax(-1)
     cmp = dict(
         shape=tuple(img.shape),
+        equal=torch.equal(img.cpu(), img_c),
         hit_masks_equal=torch.equal(img[..., :3].amax(-1).cpu() > 0, hit),
         hit_pixels=int(hit.sum()),
-        misses_equal=torch.equal(img.cpu()[~hit], img_c[~hit]),
         pixels_unequal=int((diff > 0).sum()),
-        pixels_over_tol=int((diff > ENTRY_TOL).sum()),
-        share_within_tol=float((diff[hit] <= ENTRY_TOL).float().mean()),
         max_abs_err=float(diff.max()))
-    if not (cmp["hit_masks_equal"] and cmp["misses_equal"]
-            and cmp["share_within_tol"] >= ENTRY_SHARE):
+    if not cmp["equal"]:
         raise RuntimeError(f"entry() step, card against CPU: {cmp}")
     rec["entry"] = dict(cmp, ms=step_ms, launches=launched,
                         device=str(args[1].device))
     log("entry", f"[{smi}] entry() step on {rec['entry']['device']}: "
         f"{cmp['shape']}, {step_ms:.3f} ms (best of 3 windows, CUDA "
-        f"events); against the CPU: hit masks equal ({cmp['hit_pixels']} "
-        f"hits), {cmp['pixels_unequal']} pixels unequal, "
-        f"{cmp['pixels_over_tol']} over {ENTRY_TOL} (largest "
-        f"{cmp['max_abs_err']:.3g}); row-kernel launches {launched}")
+        f"events); against the CPU: bitwise {cmp['equal']} "
+        f"({cmp['hit_pixels']} hits, {cmp['pixels_unequal']} pixels "
+        f"unequal, largest {cmp['max_abs_err']:.3g}); row-kernel launches "
+        f"{launched}")
     rec["dryrun"] = {}
     for n in (1, MULTI_RANKS):
         t = time.perf_counter()

@@ -254,6 +254,7 @@ def config4(n: int = 128, size: Tuple[int, int] = (1920, 1088),
     from ray_tracing_octrees_tpu_torch.trace.mesh_grid import (
         prepare_mc_scene, render_mc_mesh_frame,
     )
+    from ray_tracing_octrees_tpu_torch.trace.slab_sweep import _unit
 
     dev = resolve_device(device)
     g, scene = _scene_grid(dev, n, scene_path)
@@ -309,7 +310,7 @@ def config4(n: int = 128, size: Tuple[int, int] = (1920, 1088),
     def frame():
         res = trace_lbvh(bvh, o, d, max_steps=4096)
         so = res["point"] + res["normal"] * 1e-3
-        sd = (light / torch.linalg.norm(light)).expand(so.shape)
+        sd = _unit(light).expand(so.shape)
         sres = trace_lbvh(bvh, so, sd, max_steps=4096)
         return res, sres
 

@@ -43,11 +43,21 @@ class OccupancyPyramid:
     """Per-level cell codes, finest (k = 0, the occupancy itself) first.
 
     ``code_levels[k]`` is uint8 of shape ``ceil(dims / 2^k)`` in (Z, Y, X)
-    order, for k = 0 .. L where 2^L is the root size.
+    order, for k = 0 .. L where 2^L is the root size: 0 uniform-empty, 1
+    mixed, 2 uniform-solid. ``any_levels[k]`` / ``all_levels[k]`` are the
+    per-level any / all occupancy reductions it encodes.
     """
 
     def __init__(self, code_levels: List[torch.Tensor]):
         self.code_levels = list(code_levels)
+
+    @property
+    def any_levels(self) -> List[torch.Tensor]:
+        return [c > 0 for c in self.code_levels]
+
+    @property
+    def all_levels(self) -> List[torch.Tensor]:
+        return [c == 2 for c in self.code_levels]
 
     @property
     def num_levels(self) -> int:
@@ -71,6 +81,11 @@ class OccupancyPyramid:
         yc = cy.clamp(0, dy - 1).long()
         zc = cz.clamp(0, dz - 1).long()
         return torch.where(inb, arr[zc, yc, xc], 0).to(torch.uint8)
+
+    def cell_state(self, k: int, cx, cy, cz):
+        """(any, all) of level-k cells; outside the array (False, False)."""
+        code = self.cell_code(k, cx, cy, cz)
+        return code > 0, code == 2
 
 
 def _reduce_level(prev_any: torch.Tensor, prev_all: torch.Tensor):
@@ -371,21 +386,25 @@ def build_linear_octree(occ, device: DeviceLike = None) -> LinearOctree:
                            for k, v in arrays.items()})
 
 
-def build_node_id_volume(tree: LinearOctree) -> torch.Tensor:
+def build_node_id_volume(tree: LinearOctree,
+                         root_size: int = 0) -> torch.Tensor:
     """i32[S, S, S]: the id of the leaf holding each voxel of the root
-    cube, on the tree's device.
+    cube, on the tree's device. S is ``root_size``, or with 0 the root
+    node's size (one read from the device).
 
     The constant-time half of ``g_octreeMap``: the deepest node anchored
     at a corner c is always a leaf (internal nodes carry all 8 children),
     and it exists iff the leaf holding c has its min corner at c. So
     ``find_node`` becomes one volume lookup and an anchored check
     (:func:`find_node_vol`). Built top-down from the child arrays in
-    log2(S) doubling steps, S read from the root node.
+    floor(log2(S)) doubling steps.
     """
     dev = tree.device
+    if not root_size:
+        root_size = int(tree.size[0])
     children = tree.children.long()
     ids = torch.zeros((1, 1, 1), dtype=torch.int64, device=dev)
-    for _ in range(int(tree.size[0]).bit_length() - 1):
+    for _ in range(int(root_size).bit_length() - 1):
         ids = _upsample(ids, 2)
         h = torch.arange(ids.shape[0], device=dev) & 1
         octant = (h[None, None, :]          # x -> bit 0 (OctreeVoxel.cpp:751-755)

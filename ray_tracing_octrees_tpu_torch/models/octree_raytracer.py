@@ -37,11 +37,13 @@ from ray_tracing_octrees_tpu_torch.trace.slab_sweep import _host, _unit
 
 def lambert_shade(normal, hit, light_dir, base_color, ambient):
     """shade() (RayTracerBVH.cpp:331-336): base * max(0, N . -L) + ambient,
-    black where ``hit`` is False; f32[N, 3] on ``normal``'s device."""
+    black where ``hit`` is False; f32[N, 3] on ``normal``'s device. N . L
+    is summed in order, so every device rounds it alike."""
     f32 = torch.float32
     dev = normal.device
     l = _unit(torch.as_tensor(light_dir, dtype=f32, device=dev))
-    ndotl = torch.clamp(-(normal * l[None, :]).sum(-1), min=0.0)
+    ndotl = torch.clamp(-(normal[..., 0] * l[0] + normal[..., 1] * l[1]
+                          + normal[..., 2] * l[2]), min=0.0)
     base = torch.as_tensor(base_color, dtype=f32, device=dev)
     amb = torch.as_tensor(ambient, dtype=f32, device=dev)
     color = base[None, :] * ndotl[:, None] + amb[None, :]

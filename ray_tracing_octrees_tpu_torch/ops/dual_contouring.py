@@ -46,7 +46,7 @@ import torch
 from ray_tracing_octrees_tpu_torch._device import (
     DeviceLike, resolve_device, upload,
 )
-from ray_tracing_octrees_tpu_torch.config import DCConfig
+from ray_tracing_octrees_tpu_torch.config import DCConfig, QEFConfig
 from ray_tracing_octrees_tpu_torch.core.grid import VoxelGrid
 from ray_tracing_octrees_tpu_torch.core.octree import (
     LinearOctree, find_node_vol,
@@ -233,11 +233,14 @@ def _decode3(lin, ny: int, nx: int):
 
 
 def dual_contour_uniform(grid: VoxelGrid, max_cells: int, max_triangles: int,
+                         qef_cfg: QEFConfig = QEFConfig(),
                          device: DeviceLike = None):
     """Single-pass per-voxel DC (the fixed GPU design), on ``device``
-    (CUDA unless ``device="cpu"``). Returns (verts f32[max_triangles, 3,
-    3], normals f32[max_triangles, 3], count int32 0-d); rows past count
-    are zero."""
+    (CUDA unless ``device="cpu"``), its dual vertices solved with
+    ``qef_cfg``. Returns (verts f32[max_triangles, 3, 3], normals
+    f32[max_triangles, 3], count int32 0-d); rows past count are zero.
+    The degenerate-triangle area is ``DCConfig()``'s, as the reference
+    package's."""
     dev = resolve_device(device)
     grid = grid.to(dev)
     dx, dy, dz = grid.dims_xyz
@@ -268,7 +271,7 @@ def dual_contour_uniform(grid: VoxelGrid, max_cells: int, max_triangles: int,
     msk = msk & valid_cell[:, None]
     centers = grid.voxel_center(acx, acy, acz)
     cell_size = grid.voxel_size.expand(centers.shape[:1])
-    dual = generate_dual_vertex(pts, nrms, msk, centers, cell_size)
+    dual = generate_dual_vertex(pts, nrms, msk, centers, cell_size, qef_cfg)
 
     # dense vertex field, default the voxel centre
     zz, yy, xx = torch.meshgrid(*(torch.arange(n, dtype=torch.int32,
@@ -468,16 +471,18 @@ def _pass0_level(grid, tree, id_vol, ids, node_mask, need_vertex, s: int,
     return surf, adj_per_dir
 
 
-def _pass1_level(grid, tree, vertex, ids, s: int, stride: int):
+def _pass1_level(grid, tree, vertex, ids, s: int, stride: int,
+                 qef_cfg: QEFConfig):
     """One level of pass 1: the hermite shell scan and the QEF dual
-    vertex of every needed leaf of size ``s``, written into ``vertex``."""
+    vertex (``qef_cfg``) of every needed leaf of size ``s``, written into
+    ``vertex``."""
     ids_l = ids.long()
     pts, nrms, msk = gather_cell_hermite(
         grid, tree.x[ids_l], tree.y[ids_l], tree.z[ids_l], s, stride)
     cell_size = torch.full((ids.shape[0],), float(s), dtype=f32,
                            device=vertex.device) * grid.voxel_size
     vertex[ids_l] = generate_dual_vertex(pts, nrms, msk, vertex[ids_l],
-                                         cell_size)
+                                         cell_size, qef_cfg)
 
 
 def _pass2(tree, vertex, ids, adj_per_dir, emitted_any, area_eps: float):
@@ -536,6 +541,8 @@ def _level_batches(ids_by_level, dev):
 
 def adaptive_dual_contouring(grid: VoxelGrid, tree: LinearOctree,
                              node_mask=None,
+                             qef_cfg: QEFConfig = QEFConfig(),
+                             dc_cfg: DCConfig = DCConfig(),
                              with_boundary_fans: bool = True,
                              node_id_vol=None, tree_meta=None,
                              device_out: bool = False,
@@ -546,6 +553,11 @@ def adaptive_dual_contouring(grid: VoxelGrid, tree: LinearOctree,
 
     node_mask: optional bool[N] visibility (frustum culling at margin 50,
     as renderOctree applies before render(), main.cpp:154-189).
+    qef_cfg: pass 1's dual-vertex solve. dc_cfg: ``max_size_ratio`` (the
+    neighbour-leaf LOD limit of pass 0 and the fans), the hermite scan's
+    ``stride_large_cell`` above ``stride_switch_size``,
+    ``degenerate_area_eps`` and ``face_fan_divisions``; its ``qef`` and
+    ``always_fine_size`` are not read, as in the reference package.
     node_id_vol: optional i32[S, S, S] from
     ``core.octree.build_node_id_volume``: every neighbour lookup becomes
     one volume lookup (same results). tree_meta: optional host (is_leaf,
@@ -574,7 +586,7 @@ def adaptive_dual_contouring(grid: VoxelGrid, tree: LinearOctree,
         ids = level_ids[k]
         surf, adj = _pass0_level(grid, tree, node_id_vol, ids, node_mask,
                                  need_vertex, 1 << k,
-                                 float(_DC.max_size_ratio))
+                                 float(dc_cfg.max_size_ratio))
         seg[k] = (ids, surf, adj)
 
     # ---- pass 1: dual vertices of every needed leaf ------------------------
@@ -587,8 +599,9 @@ def adaptive_dual_contouring(grid: VoxelGrid, tree: LinearOctree,
             needed[k] = ids
     for k, ids in _level_batches(needed, dev).items():
         s = 1 << k
-        stride = _DC.stride_large_cell if s > _DC.stride_switch_size else 1
-        _pass1_level(grid, tree, vertex, ids, s, stride)
+        stride = (dc_cfg.stride_large_cell if s > dc_cfg.stride_switch_size
+                  else 1)
+        _pass1_level(grid, tree, vertex, ids, s, stride, qef_cfg)
 
     # ---- pass 2: triangle emission, every level's rows at once -------------
     emitted_any = torch.zeros(n_nodes + 1, dtype=torch.bool, device=dev)
@@ -600,12 +613,12 @@ def adaptive_dual_contouring(grid: VoxelGrid, tree: LinearOctree,
                            for i in range(2)) for j in range(3)])
                    for d in range(3)]
         parts.append(_pass2(tree, vertex, ids_cat, adj_cat, emitted_any,
-                            float(_DC.degenerate_area_eps)))
+                            float(dc_cfg.degenerate_area_eps)))
 
     # ---- pass 3: boundary face fans (createFaceTriangles fallback) ---------
     if with_boundary_fans and levels:
         fans = _boundary_face_fans(grid, tree, vertex, seg, levels,
-                                   emitted_any[:n_nodes], node_id_vol)
+                                   emitted_any[:n_nodes], dc_cfg, node_id_vol)
         if fans is not None:
             parts.append(fans)
 
@@ -624,7 +637,7 @@ def adaptive_dual_contouring(grid: VoxelGrid, tree: LinearOctree,
 
 
 def _boundary_face_fans(grid, tree, vertex, seg, levels, emitted_any,
-                        id_vol=None):
+                        dc_cfg: DCConfig, id_vol=None):
     """createFaceTriangles (AdaptiveDualContouringRenderer.cpp:805-1088)
     for surface leaves that emitted nothing and touch the grid boundary.
 
@@ -647,7 +660,8 @@ def _boundary_face_fans(grid, tree, vertex, seg, levels, emitted_any,
     if sel.numel() == 0:
         return None
     return _fan_level(grid, tree, vertex, id_vol, ids_cat[sel], s_cat[sel],
-                      int(_DC.face_fan_divisions), float(_DC.max_size_ratio))
+                      int(dc_cfg.face_fan_divisions),
+                      float(dc_cfg.max_size_ratio))
 
 
 def _fan_level(grid, tree, vertex, id_vol, ids, s, divisions: int,

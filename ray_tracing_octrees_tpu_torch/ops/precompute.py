@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ray_tracing_octrees_tpu_torch.ops.marching_cubes import cross3
 from ray_tracing_octrees_tpu_torch.ops.sampling import _f32, sample_trilinear
 from ray_tracing_octrees_tpu_torch.trace.slab_sweep import _cdiv, _sqrt, _unit
 
@@ -120,12 +121,13 @@ def precompute_volume(volume: torch.Tensor, radiation: torch.Tensor):
 
     # tangent curvature: density variation along two tangents of the
     # normal, one world voxel away (fractional texel offsets)
+    # (cross3: the CPU's torch.linalg.cross bits, on every device)
     alt = torch.tensor([1.0, 0.0, 0.0], dtype=f32, device=dev)
-    t1 = torch.linalg.cross(normal, up.expand_as(normal), dim=-1)
-    t1_alt = torch.linalg.cross(normal, alt.expand_as(normal), dim=-1)
+    t1 = cross3(normal, up.expand_as(normal))
+    t1_alt = cross3(normal, alt.expand_as(normal))
     t1 = torch.where((_norm3(t1) < 0.1)[..., None], t1_alt, t1)
     t1 = t1 / torch.clamp(_norm3(t1)[..., None], min=1e-30)
-    t2 = torch.linalg.cross(normal, t1, dim=-1)
+    t2 = cross3(normal, t1)
 
     dz, dy, dx = volume.shape
     ar = lambda n: torch.arange(n, dtype=f32, device=dev)

@@ -26,7 +26,7 @@ from ray_tracing_octrees_tpu_torch.config import QEFConfig
 from ray_tracing_octrees_tpu_torch.ops.marching_cubes import norm3
 from ray_tracing_octrees_tpu_torch.trace.raymarch import _fma
 
-_CFG = QEFConfig()     # the reference's constants
+_DEFAULT = QEFConfig()     # the reference's constants
 f32 = torch.float32
 
 
@@ -83,31 +83,32 @@ def _inverse_3x3(m: torch.Tensor):
     return adj / det[..., None, None], det
 
 
-def qef_solve(ata, atb, masspoint, count, cell_center,
-              cell_size) -> torch.Tensor:
+def qef_solve(ata, atb, masspoint, count, cell_center, cell_size,
+              cfg: QEFConfig = _DEFAULT) -> torch.Tensor:
     """QEFSolver::solve (AdaptiveDualContouringRenderer.cpp:84-148),
-    vectorized over the leading dims: the dual position f32[..., 3]."""
+    vectorized over the leading dims: the dual position f32[..., 3].
+    ``cfg``'s float knobs meet the f32 arrays rounded to f32 (``_c``)."""
     eye = torch.eye(3, dtype=f32, device=ata.device)
-    inv, det = _inverse_3x3(ata + eye * _c(_CFG.regularization))
+    inv, det = _inverse_3x3(ata + eye * _c(cfg.regularization))
     bad_inv = ((det.abs() < 1e-10) | inv.isnan().any(-1).any(-1)
                | inv.isinf().any(-1).any(-1)
                | (inv.abs() > 1e6).any(-1).any(-1))
     solution = _dot3(inv, atb[..., None, :])
-    solution = _fma(solution - masspoint, _c(_CFG.relaxation), masspoint)
+    solution = _fma(solution - masspoint, _c(cfg.relaxation), masspoint)
     nan_sol = solution.isnan().any(-1)
     diff = solution - masspoint
     dist_sq = _dot3(diff, diff)
     ok = (~bad_inv & ~nan_sol & (dist_sq < cell_size * cell_size)
-          & (count >= _CFG.min_points_for_solve))
-    mix = _CFG.masspoint_mix
+          & (count >= cfg.min_points_for_solve))
+    mix = cfg.masspoint_mix
     mixed = _fma(solution, _c(1.0 - mix), masspoint * _c(mix))
     # numPoints == 0 -> cellCenter
     fallback = torch.where((count > 0)[..., None], masspoint, cell_center)
     return torch.where(ok[..., None], mixed, fallback)
 
 
-def generate_dual_vertex(points, normals, mask, cell_center,
-                         cell_size) -> torch.Tensor:
+def generate_dual_vertex(points, normals, mask, cell_center, cell_size,
+                         cfg: QEFConfig = _DEFAULT) -> torch.Tensor:
     """generateDualVertex (AdaptiveDualContouringRenderer.cpp:1146-1234).
 
     points / normals f32[..., K, 3], mask bool[..., K], cell_center
@@ -117,7 +118,7 @@ def generate_dual_vertex(points, normals, mask, cell_center,
     ata, atb, masspoint, count = qef_accumulate(points, normals, mask)
     has_data = count > 0
     half = (cell_size * 0.5)[..., None]
-    inset = (cell_size * _c(_CFG.bounds_inset_factor))[..., None]
+    inset = (cell_size * _c(cfg.bounds_inset_factor))[..., None]
     min_b = cell_center - half + inset
     max_b = cell_center + half - inset
 
@@ -139,7 +140,7 @@ def generate_dual_vertex(points, normals, mask, cell_center,
 
     # plane points: hermite points whose unit normal aligns with the axis
     align = _dot3(_normalize(normals), snapped[..., None, :])
-    plane_mask = mask & (align > _CFG.plane_alignment_threshold)
+    plane_mask = mask & (align > cfg.plane_alignment_threshold)
     plane_count = plane_mask.sum(-1)
     plane_point = (points * plane_mask[..., None]).sum(-2) / torch.clamp(
         plane_count[..., None].to(f32), min=1.0)
@@ -148,14 +149,14 @@ def generate_dual_vertex(points, normals, mask, cell_center,
     projected = _fma(t[..., None], snapped, cell_center)
     projected = torch.minimum(torch.maximum(projected, min_b), max_b)
     snap_ok = (has_data & (avg_len > 1e-4)
-               & (max_comp > _CFG.snap_normal_threshold) & (plane_count > 0))
+               & (max_comp > cfg.snap_normal_threshold) & (plane_count > 0))
 
     # --- constrained QEF ----------------------------------------------------
     qef_center = 0.5 * (min_b + max_b)
     qef_size = (max_b - min_b)[..., 0]
-    sol = qef_solve(ata, atb, masspoint, count, qef_center, qef_size)
+    sol = qef_solve(ata, atb, masspoint, count, qef_center, qef_size, cfg)
     sol = torch.minimum(torch.maximum(sol, min_b), max_b)
-    cmix = _CFG.constrained_masspoint_mix
+    cmix = cfg.constrained_masspoint_mix
     qef_result = _fma(sol, _c(1.0 - cmix), masspoint * _c(cmix))
     out = torch.where(snap_ok[..., None], projected, qef_result)
     return torch.where(has_data[..., None], out, cell_center)

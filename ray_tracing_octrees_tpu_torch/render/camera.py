@@ -18,6 +18,9 @@ import torch
 
 from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
 from ray_tracing_octrees_tpu_torch.config import CameraConfig
+from ray_tracing_octrees_tpu_torch.trace.raymarch import _fma
+from ray_tracing_octrees_tpu_torch.trace.slab_sweep import _fdiv, _sqrt
+from ray_tracing_octrees_tpu_torch.trace.warp_kernel import view_rotation
 
 
 def look_at(eye, target, up=(0.0, 1.0, 0.0)):
@@ -128,22 +131,33 @@ def generate_rays(width: int, height: int, cam_pos, view, fov_deg, aspect,
 
     Returns (origins f32[H*W, 3], directions f32[H*W, 3]) with pixel
     (px, py) at flat index py*width + px; py = 0 is the TOP row.
+
+    tan(fov / 2) and the rotation come from the host
+    (``warp_kernel.view_rotation``); the rest is f32 elementwise ops (IEEE
+    divisions by ``_fdiv``, roots by ``_sqrt``, the sums of products as
+    the multiply-adds the reference's compiled form fuses them into,
+    ``raymarch._fma``), so the card's rays equal the CPU's bit for bit.
     """
     dev = resolve_device(device)
     f32 = torch.float32
-    fov = torch.tensor(np.float32(fov_deg), device=dev) * np.float32(math.pi / 180.0)
-    tan_half = torch.tan(fov * 0.5)
-    px = (torch.arange(width, dtype=f32, device=dev) + 0.5) / width * 2.0 - 1.0
-    py = 1.0 - (torch.arange(height, dtype=f32, device=dev) + 0.5) / height * 2.0
+    tan_half, rot = view_rotation(fov_deg, view)
+    tan_half, rot = float(tan_half), rot.tolist()
+    px = _fdiv(torch.arange(width, dtype=f32, device=dev) + 0.5,
+               width) * 2.0 - 1.0
+    py = 1.0 - _fdiv(torch.arange(height, dtype=f32, device=dev) + 0.5,
+                     height) * 2.0
     nx = px * float(aspect) * tan_half
     ny = py * tan_half
     nyg, nxg = torch.meshgrid(ny, nx, indexing="ij")
-    d_view = torch.stack([nxg, nyg, -torch.ones_like(nxg)], -1).reshape(-1, 3)
-    d_view = d_view / torch.linalg.norm(d_view, dim=-1, keepdim=True)
-    inv_view = torch.linalg.inv(torch.as_tensor(np.asarray(view, np.float32),
-                                                device=dev))
-    d_world = d_view @ inv_view[:3, :3].T
-    d_world = d_world / torch.linalg.norm(d_world, dim=-1, keepdim=True)
+    nxg, nyg = nxg.reshape(-1), nyg.reshape(-1)
+    # normalize (nx, ny, -1) in view space: z * z = 1 adds last
+    n1 = _sqrt(_fma(nyg, nyg, nxg * nxg) + 1.0)
+    dv = (nxg / n1, nyg / n1, -1.0 / n1)
+    # rotate, d_view @ rot.T, and normalize in world space
+    dw = [_fma(dv[2], rot[c][2], _fma(dv[1], rot[c][1], dv[0] * rot[c][0]))
+          for c in range(3)]
+    n2 = _sqrt(_fma(dw[2], dw[2], _fma(dw[1], dw[1], dw[0] * dw[0])))
+    d_world = torch.stack([c / n2 for c in dw], -1)
     origins = torch.as_tensor(np.asarray(cam_pos, np.float32),
                               device=dev)[None, :].expand_as(d_world)
     return origins, d_world

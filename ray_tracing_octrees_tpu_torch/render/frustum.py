@@ -18,6 +18,7 @@ import torch
 from ray_tracing_octrees_tpu_torch._device import (
     DeviceLike, resolve_device, upload,
 )
+from ray_tracing_octrees_tpu_torch.trace.slab_sweep import _sqrt
 
 
 def frustum_planes(view_proj, device: DeviceLike = None) -> torch.Tensor:
@@ -30,8 +31,17 @@ def frustum_planes(view_proj, device: DeviceLike = None) -> torch.Tensor:
     r0, r1, r2, r3 = m[0], m[1], m[2], m[3]
     planes = torch.stack([r3 + r0, r3 - r0, r3 + r1, r3 - r1, r3 + r2,
                           r3 - r2], dim=0)
-    norm = torch.linalg.norm(planes[:, :3], dim=-1, keepdim=True)
+    a, b, c = planes[:, 0], planes[:, 1], planes[:, 2]
+    # the normals' lengths summed in order (no device reduction), as the
+    # rays: every device gives the same planes
+    norm = _sqrt(a * a + b * b + c * c)[:, None]
     return planes / torch.clamp(norm, min=1e-30)
+
+
+def _dot3(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``(u * v).sum(-1)`` over a last dim of 3, summed left to right."""
+    return (u[..., 0] * v[..., 0] + u[..., 1] * v[..., 1]
+            + u[..., 2] * v[..., 2])
 
 
 def test_aabb(planes: torch.Tensor, box_min, box_max,
@@ -48,8 +58,10 @@ def test_aabb(planes: torch.Tensor, box_min, box_max,
     # p-vertex: furthest along the normal; n-vertex: nearest
     p = torch.where(pos, box_max[..., None, :], box_min[..., None, :])
     n = torch.where(pos, box_min[..., None, :], box_max[..., None, :])
-    p_dist = (p * n_xyz).sum(-1) + d
-    n_dist = (n * n_xyz).sum(-1) + d
+    # the dot products summed in order (no device reduction): every device
+    # culls alike
+    p_dist = _dot3(p, n_xyz) + d
+    n_dist = _dot3(n, n_xyz) + d
     outside = (p_dist < 0).any(-1)
     intersecting = (n_dist < 0).any(-1)
     return torch.where(outside, -1, torch.where(intersecting, 0, 1)).to(

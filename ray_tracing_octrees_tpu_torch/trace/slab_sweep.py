@@ -34,7 +34,8 @@ import torch.nn.functional as F
 
 from ray_tracing_octrees_tpu_torch._device import DeviceLike, resolve_device
 from ray_tracing_octrees_tpu_torch.trace.warp_kernel import (
-    _SAB_IDX, frame_scalars, unpack_frame_rgb, warp_frame, warp_lookup,
+    _SAB_IDX, _sqrt, frame_scalars, unpack_frame_rgb, view_rotation,
+    warp_frame, warp_lookup,
 )
 
 CH = 32   # sweep chunk: slabs per product
@@ -89,13 +90,6 @@ def _cdiv(x: torch.Tensor, c) -> torch.Tensor:
     division by a constant so). One f32 product, so every device gives the
     same bits."""
     return x * float(np.float32(1.0) / np.float32(c))
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded f32 square root on every device. The CPU's
-    vectorized f32 ``torch.sqrt`` is an ulp off on some inputs, where the
-    card's is exact; through f64 both round once."""
-    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def _unit(v: torch.Tensor) -> torch.Tensor:
@@ -594,13 +588,10 @@ def _host(x):
 # --------------------------------------------------------------------------
 
 def _view_consts(scal_np) -> np.ndarray:
-    """f32[10]: tan(fov / 2) and the rotation ``inv(view)[:3, :3]`` (row
-    major) of the packed frame scalars, computed on the host in f32 so the
-    card and the CPU trace the very same rays (a device inverse, tangent
-    or small matmul rounds differently on each)."""
+    """f32[10]: :func:`view_rotation` of the packed frame scalars, tan(fov
+    / 2) then the rotation ``inv(view)[:3, :3]`` row major."""
     scal_np = np.asarray(scal_np, np.float32)
-    tan_half = np.tan(scal_np[8] * np.float32(math.pi / 360.0))
-    rot = np.linalg.inv(scal_np[18:34].reshape(4, 4))[:3, :3]
+    tan_half, rot = view_rotation(scal_np[8], scal_np[18:34].reshape(4, 4))
     return np.concatenate([[tan_half], rot.reshape(-1)]).astype(np.float32)
 
 
@@ -744,11 +735,14 @@ def _finish_shade(w_val, behind, dirs, d_s_n, scal, width: int, height: int,
         torch.floor((p_in - grid_origin[None, :]) / voxel_size) + 0.5
     ) * voxel_size
     nrm = point - center
-    nlen = torch.linalg.norm(nrm, dim=-1, keepdim=True)
+    # lengths and N . L summed in order: every device rounds them alike
+    n0, n1, n2 = nrm[:, 0], nrm[:, 1], nrm[:, 2]
+    nlen = _sqrt(n0 * n0 + n1 * n1 + n2 * n2)[:, None]
     nrm = nrm / torch.clamp(nlen, min=1e-12)
 
-    l = light_dir / torch.linalg.norm(light_dir)
-    ndotl = torch.clamp(-(nrm * l[None, :]).sum(-1), min=0.0)
+    l = _unit(light_dir)
+    ndotl = torch.clamp(-(nrm[:, 0] * l[0] + nrm[:, 1] * l[1]
+                          + nrm[:, 2] * l[2]), min=0.0)
     color = base_color[None, :] * ndotl[:, None] + ambient[None, :]
     if has_shadow:
         color = torch.where(sh_bit[:, None], ambient[None, :], color)

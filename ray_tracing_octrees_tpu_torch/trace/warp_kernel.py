@@ -28,6 +28,7 @@ ones. The single-plane kernel comes in two forms, chosen by
 
 from __future__ import annotations
 
+import array
 import ctypes
 import math
 from typing import Dict, List, Optional, Tuple
@@ -47,16 +48,78 @@ _KS_N = 35
 _SAB_IDX = {0: (0, 1, 2), 1: (1, 0, 2), 2: (2, 0, 1)}
 
 
+def lu_inverse(m) -> np.ndarray:
+    """f32[4, 4] inverse of a 4x4 matrix on the host, rounded as the
+    reference's f32 ``jnp.linalg.inv`` on the CPU rounds it: LAPACK's LU
+    with partial pivoting (left-looking: each column's updates are dot
+    products summed as multiply-adds; the pivot's reciprocal scales the
+    column below it), then the unit-lower and upper triangular solves of
+    the permuted identity (multiply-adds, the diagonal's reciprocal).
+    Equal to it on the rotation block of every view measured; numpy's
+    and torch's LAPACK inverses differ from it by an ulp in about one
+    entry in four, which moves a grazing ray into the next leaf.
+
+    Scalar Python floats, each op rounded to f32 once by storing it in
+    an f32 array (a multiply-add rounds its exact f64 sum, as
+    ``raymarch._fma``; a reciprocal of 0 is inf, as in f32): a few times
+    faster than numpy scalars."""
+    buf = array.array("f", [0.0])
+
+    def r32(x: float) -> float:
+        buf[0] = x
+        return buf[0]
+
+    def recip(x: float) -> float:
+        return r32(1.0 / x) if x else math.copysign(math.inf, x)
+
+    n = 4
+    a = [[float(v) for v in row]
+         for row in np.asarray(m, np.float32).reshape(n, n)]
+    perm = list(range(n))
+    for j in range(n):
+        for i in range(1, n):
+            s = 0.0
+            for k in range(min(i, j)):
+                s = r32(a[i][k] * a[k][j] + s)
+            a[i][j] = r32(a[i][j] - s)
+        p = max(range(j, n), key=lambda i: abs(a[i][j]))
+        if p != j:
+            a[j], a[p] = a[p], a[j]
+            perm[j], perm[p] = perm[p], perm[j]
+        r = recip(a[j][j])
+        for i in range(j + 1, n):
+            a[i][j] = r32(a[i][j] * r)
+    out = np.zeros((n, n), np.float32)
+    for c in range(n):
+        b = [1.0 if perm[i] == c else 0.0 for i in range(n)]
+        for k in range(n):                  # L y = P e_c, unit diagonal
+            for i in range(k + 1, n):
+                b[i] = r32(-b[k] * a[i][k] + b[i])
+        for k in range(n - 1, -1, -1):      # U x = y
+            b[k] = r32(b[k] * recip(a[k][k]))
+            for i in range(k):
+                b[i] = r32(-b[k] * a[i][k] + b[i])
+        out[:, c] = b
+    return out
+
+
+def view_rotation(fov_deg, view):
+    """(tan(fov / 2) f32, the rotation ``inv(view)[:3, :3]`` f32[3, 3]),
+    on the host: a device tangent or inverse rounds differently on each
+    device. Every path takes its rays' rotation from here, the fused
+    frame's scalars included."""
+    tan_half = np.tan(np.float32(fov_deg) * np.float32(math.pi / 360.0))
+    return np.float32(tan_half), lu_inverse(view)[:3, :3]
+
+
 def frame_scalars(scal) -> np.ndarray:
     """The fused kernel's f32[35] scalars from the packed per-frame scalars
-    (slab_sweep layout), on the host in f32 — ``inv(view)`` included, as
-    the reference computes it in f32."""
+    (slab_sweep layout), on the host in f32 — the rotation through
+    :func:`view_rotation`, as every split path takes it."""
     f32 = np.float32
     scal = np.asarray(scal, f32)
-    fov_deg, aspect = scal[8], scal[9]
-    tan_half = np.tan(fov_deg * f32(math.pi / 360.0))
-    view = scal[18:34].reshape(4, 4)
-    R = np.linalg.inv(view)[:3, :3]
+    aspect = scal[9]
+    tan_half, R = view_rotation(scal[8], scal[18:34].reshape(4, 4))
     light = scal[34:37]
     l = light / np.linalg.norm(light)
     a_min, a_max, b_min, b_max = scal[4], scal[5], scal[6], scal[7]
@@ -228,6 +291,14 @@ def _texels(th, tw, ks, axis_world, width, height, dev):
     return k, d3, behind, invalid, iu, iv
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root on every device, as the
+    kernel's ``sqrtf``. The CPU's vectorized f32 ``torch.sqrt`` is an ulp
+    off on some inputs, where the card's is exact; through f64 both round
+    once. (``slab_sweep._sqrt``, which every module imports from there.)"""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def _reference(table, ks, axis_world, width, height, has_shadow):
     f32 = torch.float32
     dev = table.device
@@ -241,7 +312,7 @@ def _reference(table, ks, axis_world, width, height, has_shadow):
     hit = (val >= 0.0) & ~behind
     sh_bit = val >= 2048.0
     z_f = torch.clamp(val - torch.where(sh_bit, 2048.0, 0.0), min=0.0)
-    d_len = torch.sqrt(d3[0] * d3[0] + d3[1] * d3[1] + d3[2] * d3[2])
+    d_len = _sqrt(d3[0] * d3[0] + d3[1] * d3[1] + d3[2] * d3[2])
     t_w = (z_f - eye_s) * vox * d_len / d_s
     t_w = torch.where(hit, t_w, 0.0)
 
@@ -257,7 +328,7 @@ def _reference(table, ks, axis_world, width, height, has_shadow):
         n_c = p_c - cen_c
         nrm2 = nrm2 + n_c * n_c
         ndl = ndl + n_c * k[_KS_L + c]
-    ndotl = torch.clamp(-ndl / torch.clamp(torch.sqrt(nrm2), min=1e-12),
+    ndotl = torch.clamp(-ndl / torch.clamp(_sqrt(nrm2), min=1e-12),
                         min=0.0)
 
     packed = torch.zeros((height, width), dtype=torch.int32, device=dev)

@@ -137,6 +137,33 @@ def test_fast_trace_bitwise(dims):
                                    rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("pose", [(0.9, 0.8, 2.0), (0.3, -2.2, 1.6)])
+def test_hit_epilogue_normals_on_jax_rays(sphere, pose):
+    """trace_octree's hit point and leaf normal (``_hit_epilogue``: the
+    length summed in order and rooted by ``_sqrt``) against JAX's
+    trace_octree on JAX's own camera rays: hit and steps bitwise, point
+    and normal within 1e-5; misses zero, hit normals unit."""
+    o, d = _camera_rays(Camera(theta=pose[0], phi=pose[1],
+                               radius=pose[2]), 64, 48)
+    jres = jt.trace_octree(jo.build_pyramid(sphere["jg"].occ),
+                           jnp.asarray(o), jnp.asarray(d),
+                           jnp.asarray(sphere["origin"]),
+                           jnp.float32(sphere["vs"]))
+    got = tt.trace_octree(sphere["pyr"], torch.from_numpy(o),
+                          torch.from_numpy(d), sphere["origin"], sphere["vs"])
+    for k in ("hit", "steps"):
+        assert np.array_equal(got[k].numpy(), np.asarray(jres[k])), k
+    hit = got["hit"].numpy()
+    assert hit.any() and not hit.all()
+    for k in ("point", "normal"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(jres[k]),
+                                   rtol=0, atol=1e-5)
+    n = got["normal"].numpy()
+    assert (n[~hit] == 0).all()
+    np.testing.assert_allclose(np.linalg.norm(n[hit], axis=1), 1.0,
+                               rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("max_steps", [1, 3, 9])
 def test_fast_trace_step_bound_is_exact(max_steps):
     """Every ray stops once the largest step count reaches max_steps, as

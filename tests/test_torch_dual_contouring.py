@@ -29,6 +29,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from ray_tracing_octrees_tpu import config as jconfig
 from ray_tracing_octrees_tpu.core.grid import VoxelGrid as JGrid
 from ray_tracing_octrees_tpu.core.grid import make_sphere_grid as j_sphere
 from ray_tracing_octrees_tpu.core.octree import (
@@ -36,6 +37,7 @@ from ray_tracing_octrees_tpu.core.octree import (
 )
 from ray_tracing_octrees_tpu.ops import dual_contouring as jd
 from ray_tracing_octrees_tpu.ops import qef as jq
+from ray_tracing_octrees_tpu_torch import config as tconfig
 from ray_tracing_octrees_tpu_torch import convert
 from ray_tracing_octrees_tpu_torch.core.grid import VoxelGrid
 from ray_tracing_octrees_tpu_torch.core.grid import make_sphere_grid
@@ -51,6 +53,17 @@ SEED = 453
 V_TOL = 2e-6      # vertices (measured 4.8e-7)
 N_TOL = 2e-4      # normals (measured 6.3e-5)
 QEF_TOL = 2e-6    # QEF outputs (measured up to 9.5e-7)
+# non-default toggles, the same values in each package's config classes
+QEF_ALT = dict(regularization=0.05, masspoint_mix=0.5)
+DC_ALT = dict(max_size_ratio=4, face_fan_divisions=1)
+# uniform DC's unit cells with data all take the snapping path at the
+# default threshold; a stricter one sends some through the QEF
+QEF_UNIFORM = dict(QEF_ALT, snap_normal_threshold=0.95)
+
+
+def _cfgs(pkg, qef=None, dc=None):
+    """(QEFConfig, DCConfig) of ``pkg`` (``jconfig`` or ``tconfig``)."""
+    return pkg.QEFConfig(**(qef or {})), pkg.DCConfig(**(dc or {}))
 
 
 def _t(a):
@@ -124,6 +137,69 @@ def test_qef_solve_and_dual_vertex_close(hermite_sets):
     np.testing.assert_allclose(got, want, rtol=0, atol=QEF_TOL)
     # cells with no hermite data return their centre, exactly
     np.testing.assert_array_equal(got[:50], center[:50])
+
+
+def _rank1_sets(nrm, mask):
+    """bool[C]: the sets with data whose masked normals are all parallel
+    (AtA of rank 1, invertible only through the regularization)."""
+    n = nrm.astype(np.float64)
+    first = np.take_along_axis(n, mask.argmax(-1)[:, None, None], 1)
+    parallel = np.abs(np.cross(n, first)).max(-1) == 0
+    return np.where(mask, parallel, True).all(-1) & mask.any(-1)
+
+
+def _rank1_gain(cfg):
+    """How far ``cfg`` moves a rank-1 set's vertex against a one-ulp change
+    of its sums, relative to the defaults. Along the one normal the
+    adjugate's cofactors cancel from s^2 down to regularization^2, so the
+    solve's gain is 1 / regularization^2; relaxation, (1 - masspoint_mix)
+    and (1 - constrained_masspoint_mix) scale what it moves."""
+    def gain(c):
+        return (c.relaxation * (1.0 - c.masspoint_mix)
+                * (1.0 - c.constrained_masspoint_mix) / c.regularization ** 2)
+    return gain(cfg) / gain(tconfig.QEFConfig())
+
+
+@pytest.mark.parametrize("knobs", [
+    QEF_ALT, dict(regularization=0.1),
+    dict(relaxation=0.4, constrained_masspoint_mix=0.3),
+    dict(min_points_for_solve=5, snap_normal_threshold=0.95,
+         plane_alignment_threshold=0.5, bounds_inset_factor=0.01)],
+    ids=["reg-mix", "reg", "relax-cmix", "thresholds"])
+def test_qef_config_close(hermite_sets, knobs):
+    """``cfg`` of qef_solve and generate_dual_vertex against JAX's with
+    the same non-default knobs; each set moves the output. qef_solve on
+    JAX's own sums, and generate_dual_vertex, at QEF_TOL. The rank-1 sets
+    (their normals all parallel) sum in another order than XLA's, and the
+    solve carries that ulp by :func:`_rank1_gain`; they take
+    generate_dual_vertex at QEF_TOL times that gain where it is above 1.
+    Measured on their 100: 1.03e-6 at the defaults; 9.42e-6 at
+    regularization 0.1 (gain 9, 9.3e-6 predicted), 3.94e-5 at 0.05 (36,
+    3.7e-5) and 2.46e-5 with masspoint_mix 0.5 too (22.5, 2.3e-5)."""
+    pts, nrm, mask, center, size = hermite_sets
+    jcfg, _ = _cfgs(jconfig, knobs)
+    tcfg, _ = _cfgs(tconfig, knobs)
+    ata, atb, mp, cnt = (np.asarray(a) for a in jq.qef_accumulate(
+        pts, nrm, mask))
+    want = np.asarray(jax.jit(lambda *a: jq.qef_solve(*a, cfg=jcfg))(
+        ata, atb, mp, cnt, center, size))
+    args = (_t(ata), _t(atb), _t(mp), _t(cnt), _t(center), _t(size))
+    got = tq.qef_solve(*args, cfg=tcfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=QEF_TOL)
+    want = np.asarray(jax.jit(lambda *a: jq.generate_dual_vertex(
+        *a, cfg=jcfg))(pts, nrm, mask, center, size))
+    got_v = tq.generate_dual_vertex(_t(pts), _t(nrm), _t(mask), _t(center),
+                                    _t(size), tcfg)
+    rank1 = _rank1_sets(nrm, mask)
+    assert rank1.sum() == 100            # the single points and 350-399
+    np.testing.assert_allclose(got_v.numpy()[~rank1], want[~rank1], rtol=0,
+                               atol=QEF_TOL)
+    np.testing.assert_allclose(
+        got_v.numpy()[rank1], want[rank1], rtol=0,
+        atol=QEF_TOL * max(1.0, _rank1_gain(tcfg)))
+    plain = tq.generate_dual_vertex(_t(pts), _t(nrm), _t(mask), _t(center),
+                                    _t(size))
+    assert not torch.equal(got_v, plain)
 
 
 def test_inverse_3x3_is_the_adjugate():
@@ -200,6 +276,24 @@ def test_uniform_dc_sphere_and_capacity():
                      td.dual_contour_uniform(tg, 700, 900, device="cpu"))
 
 
+@pytest.mark.parametrize("dims", [(4, 4, 4), (6, 5, 7)])
+def test_uniform_dc_qef_config_close(dims):
+    """dual_contour_uniform's ``qef_cfg`` against JAX's, non-default: the
+    same count, the bars above, and other vertices than the default's."""
+    _, jg, tg = _scene(dims, 0.4, (0.0, 0.0, 0.0), 1.0)
+    jcfg, _ = _cfgs(jconfig, QEF_UNIFORM)
+    tcfg, _ = _cfgs(tconfig, QEF_UNIFORM)
+    out = td.dual_contour_uniform(tg, 512, 4000, qef_cfg=tcfg, device="cpu")
+    # JAX's jit marks only the capacities static, so a config (not an
+    # array) passes through its unjitted body, compiled with it static
+    j_uniform = jax.jit(jd.dual_contour_uniform.__wrapped__, static_argnames=(
+        "max_cells", "max_triangles", "qef_cfg"))
+    _assert_dc_close(j_uniform(jg, max_cells=512, max_triangles=4000,
+                               qef_cfg=jcfg), out)
+    plain = td.dual_contour_uniform(tg, 512, 4000, device="cpu")
+    assert not torch.equal(out[0], plain[0])
+
+
 # ---------------------------------------------------------------------------
 # adaptive DC
 # ---------------------------------------------------------------------------
@@ -209,10 +303,21 @@ RANDOM_SCENES = {"8x8x8": ((8, 8, 8), (1.0, -1.0, 3.0), 0.25),
 
 
 # (scene, case) pairs: fans on and off and a node mask on one scene, fans
-# on the other (each JAX variant compiles its own programs: ~12 s for the
-# first on a scene, 0.2-3 s for the others)
+# on the other, and the non-default QEF and DC toggles on both (each JAX
+# variant compiles its own programs: ~12 s for the first on a scene, 0.2-3
+# s for the others)
 ADAPTIVE_CASES = [("8x8x8", "fans"), ("8x8x8", "no_fans"),
-                  ("8x8x8", "masked"), ("6x9x5", "fans")]
+                  ("8x8x8", "masked"), ("6x9x5", "fans"),
+                  ("8x8x8", "configs"), ("6x9x5", "configs")]
+
+
+def _adaptive_kw(pkg, case, mask):
+    """Keyword arguments of adaptive_dual_contouring for ``case``."""
+    if case == "configs":
+        qef, dc = _cfgs(pkg, QEF_ALT, DC_ALT)
+        return dict(qef_cfg=qef, dc_cfg=dc)
+    return {"fans": {}, "no_fans": dict(with_boundary_fans=False),
+            "masked": dict(node_mask=mask)}[case]
 
 
 @pytest.fixture(scope="module")
@@ -225,10 +330,9 @@ def adaptive_jax():
         occ, jg, _ = _scene(dims, 0.35, origin, vs, seed=SEED + i)
         tree = j_tree(occ)
         mask = np.random.default_rng(SEED + i).random(tree.num_nodes) < 0.7
-        kws = {"fans": {}, "no_fans": dict(with_boundary_fans=False),
-               "masked": dict(node_mask=jnp.asarray(mask))}
         out[name] = dict(occ=occ, tree=tree, mask=mask, **{
-            case: jd.adaptive_dual_contouring(jg, tree, **kws[case])
+            case: jd.adaptive_dual_contouring(
+                jg, tree, **_adaptive_kw(jconfig, case, jnp.asarray(mask)))
             for n, case in ADAPTIVE_CASES if n == name})
     jg = j_sphere(64)
     tree = j_tree(jg.occ)
@@ -244,11 +348,14 @@ def test_adaptive_dc_close(adaptive_jax, name, case):
     tg = VoxelGrid.create(ref["occ"], origin=origin, voxel_size=vs,
                           device="cpu")
     tree = convert.linear_octree_from_numpy(ref["tree"], device="cpu")
-    kw = {"fans": {}, "no_fans": dict(with_boundary_fans=False),
-          "masked": dict(node_mask=torch.tensor(ref["mask"]))}[case]
+    kw = _adaptive_kw(tconfig, case, torch.tensor(ref["mask"]))
     out = td.adaptive_dual_contouring(tg, tree, device="cpu", **kw)
     _assert_dc_close(ref[case], out)
     assert out[2] > 0
+    if case == "configs":
+        # the toggles change the mesh
+        plain = td.adaptive_dual_contouring(tg, tree, device="cpu")
+        assert plain[2] != out[2] or not torch.equal(plain[0], out[0])
     # the node-id volume's lookups give the same triangles
     again = td.adaptive_dual_contouring(
         tg, tree, node_id_vol=build_node_id_volume(tree), device="cpu", **kw)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ray_tracing_octrees_tpu.core.grid import make_sphere_grid
@@ -89,6 +90,35 @@ def test_frame_matches_reference(scene, name):
     assert _agree(out, refq) > 0.995
     assert _agree(out, fused) > 0.995
     assert (out[..., :3].max(-1) > 0).any()
+
+
+@pytest.mark.parametrize("name", list(POSES))
+def test_frame_scalars_bitwise_jax(scene, name):
+    """The fused frame's f32[35] scalars (frame_scalars, on the host) are
+    JAX's frame_scalars_kernel bit for bit, and their tan(fov / 2) and
+    rotation are the split path's (_view_consts): the fused and the split
+    frames start from one rotation, the reference's f32 inverse (numpy's
+    inverse differs from it in the last bit on each of these poses)."""
+    from ray_tracing_octrees_tpu.trace import warp_kernel as jw
+    from ray_tracing_octrees_tpu_torch.trace import warp_kernel as tw
+
+    g, vol, _, _ = scene
+    cam = _camera(name)
+    aw, _, (S, _, _), eyes, window, crop = js._sweep_geometry(
+        vol, g.origin, g.voxel_size, cam.get_pos(), cam.get_view())
+    scal = np.asarray(js._frame_scalars(
+        *eyes[:3], eyes[3], *window, 45.0, W / H, float(g.voxel_size), S,
+        np.asarray(g.origin, np.float32) + js._AXIS_SELECTORS[aw][0]
+        * np.float32(crop * float(g.voxel_size)),
+        np.asarray(cam.get_pos(), np.float32), cam.get_view(),
+        tuple(-c for c in TO_LIGHT), (1.0, 0.8, 0.6), (0.1, 0.1, 0.1)))
+    want = np.asarray(jax.jit(jw.frame_scalars_kernel, static_argnums=1)(
+        scal, aw))
+    got = tw.frame_scalars(scal)
+    np.testing.assert_array_equal(got, want)
+    consts = ts._view_consts(scal)
+    assert got[tw._KS_TANH] == consts[0]
+    np.testing.assert_array_equal(got[tw._KS_R:], consts[1:])
 
 
 def test_frame_has_lit_shadowed_and_background(scene):

@@ -162,3 +162,70 @@ def test_generate_rays(pose):
     # vectors is a few ulps
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
     np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+
+
+def _ray_one_pixel(px, py, W, H, aspect, tan_half, rot):
+    """generate_rays' ray for pixel (px, py) alone, in numpy f32 scalars:
+    every op one IEEE f32 op (roots and multiply-adds through f64, each
+    rounded once)."""
+    f = np.float32
+    root = lambda v: f(np.sqrt(np.float64(v)))
+    fma = lambda a, b, c: f(np.float64(a) * np.float64(b) + np.float64(c))
+    nx = (f(f(f(px) + f(0.5)) / f(W)) * f(2.0) - f(1.0)) * f(aspect) * tan_half
+    ny = (f(1.0) - f(f(py) + f(0.5)) / f(H) * f(2.0)) * tan_half
+    n1 = root(fma(ny, ny, nx * nx) + f(1.0))
+    dv = (nx / n1, ny / n1, f(-1.0) / n1)
+    dw = [fma(dv[2], rot[c, 2], fma(dv[1], rot[c, 1], dv[0] * rot[c, 0]))
+          for c in range(3)]
+    n2 = root(fma(dw[2], dw[2], fma(dw[1], dw[1], dw[0] * dw[0])))
+    return np.array([c / n2 for c in dw], np.float32)
+
+
+@pytest.mark.parametrize("pose", POSES)
+def test_generate_rays_one_pixel_at_a_time(pose):
+    """A pixel's ray does not depend on the batch it is computed in: the
+    frame's rays equal each pixel's computed alone in numpy f32 scalars,
+    bit for bit, under one thread or several. Every op is elementwise f32
+    with the view constants from the host, so the card gives these bits
+    too. The rotation is the reference's f32 inverse, bit for bit."""
+    cam = tcamera.Camera(theta=pose[0], phi=pose[1], radius=pose[2])
+    W, H, aspect = 40, 24, 40 / 24
+    _, td = tcamera.generate_rays(W, H, cam.get_pos(), cam.get_view(), 45.0,
+                                  aspect, device="cpu")
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        _, td1 = tcamera.generate_rays(W, H, cam.get_pos(), cam.get_view(),
+                                       45.0, aspect, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(td, td1)
+    tan_half, rot = tcamera.view_rotation(45.0, cam.get_view())
+    np.testing.assert_array_equal(
+        rot, np.asarray(jnp.linalg.inv(jnp.asarray(cam.get_view())))[:3, :3])
+    pix = np.random.default_rng(7).choice(W * H, 96, replace=False)
+    want = np.stack([_ray_one_pixel(i % W, i // W, W, H, aspect, tan_half,
+                                    rot) for i in pix])
+    np.testing.assert_array_equal(td.numpy()[pix], want)
+
+
+def test_lu_inverse_is_jax_inverse():
+    """warp_kernel.lu_inverse on 400 seeded views (any elevation, azimuth,
+    radius, some with a moved target): the rotation block bitwise the
+    JAX package's f32 jnp.linalg.inv on the CPU, where numpy's f32
+    inverse differs in the last bit on some entries."""
+    from ray_tracing_octrees_tpu_torch.trace.warp_kernel import lu_inverse
+
+    rng = np.random.default_rng(11)
+    numpy_off = 0
+    for i in range(400):
+        cam = tcamera.Camera(theta=rng.uniform(-1.57, 1.57),
+                             phi=rng.uniform(-7.0, 7.0),
+                             radius=rng.uniform(0.01, 100.0))
+        if i % 2:
+            cam.set_target(rng.normal(size=3) * rng.uniform(0.0, 50.0))
+        view = cam.get_view()
+        want = np.asarray(jnp.linalg.inv(jnp.asarray(view)))[:3, :3]
+        np.testing.assert_array_equal(lu_inverse(view)[:3, :3], want)
+        numpy_off += int((np.linalg.inv(view)[:3, :3] != want).sum())
+    assert numpy_off > 0

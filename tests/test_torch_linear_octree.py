@@ -106,6 +106,23 @@ def test_node_id_volume_and_find_node_vol_bitwise(trees, dims):
     np.testing.assert_array_equal(b, a)
 
 
+@pytest.mark.parametrize("dims", [(5, 7, 3), (16, 9, 12)])
+@pytest.mark.parametrize("scale", ["root", "double", "odd"])
+def test_node_id_volume_root_size_bitwise(trees, dims, scale):
+    """``build_node_id_volume(tree, root_size=S)`` against JAX's: the
+    root's own size (the default's volume), twice it, and a size that is
+    not a power of two (floor(log2(S)) doubling steps)."""
+    _, jtree, ttree = trees[dims]
+    root = int(ttree.size[0])
+    S = {"root": root, "double": 2 * root, "odd": root + 3}[scale]
+    jvol = np.asarray(jo.build_node_id_volume(jtree, root_size=S))
+    tvol = to.build_node_id_volume(ttree, root_size=S)
+    assert tvol.dtype == torch.int32
+    np.testing.assert_array_equal(tvol.numpy(), jvol)
+    if scale != "double":
+        assert torch.equal(tvol, to.build_node_id_volume(ttree))
+
+
 def test_find_node_vol_equals_find_node_on_sphere():
     """On every leaf corner of the 32^3 sphere and on seeded queries,
     some out of the cube: the lookup volume equals the binary search

@@ -77,6 +77,29 @@ def test_build_pyramid_odd_dims_and_cell_code():
             got.cell_code(k, *(torch.from_numpy(cx),) * 3).numpy())
 
 
+@pytest.mark.parametrize("name", list(SCENES))
+def test_pyramid_levels_and_cell_state_bitwise(name):
+    """``any_levels``, ``all_levels`` and ``cell_state`` equal JAX's at
+    every level, on seeded cells in and out of each level's array."""
+    occ, _, _ = SCENES[name]()
+    ref = j_build(jnp.asarray(occ))
+    got = build_pyramid(torch.from_numpy(occ))
+    for levels in ("any_levels", "all_levels"):
+        want, have = getattr(ref, levels), getattr(got, levels)
+        assert len(have) == len(want)
+        for a, b in zip(want, have):
+            assert b.dtype == torch.bool
+            assert np.array_equal(np.asarray(a), b.numpy()), levels
+    rng = np.random.default_rng(1)
+    for k in range(got.num_levels):
+        dz, dy, dx = got.level_dims_zyx(k)
+        c = rng.integers(-2, max(dx, dy, dz) + 2, (3, 500)).astype(np.int32)
+        want = ref.cell_state(k, *(jnp.asarray(v) for v in c))
+        have = got.cell_state(k, *(torch.from_numpy(v) for v in c))
+        for a, b in zip(want, have):
+            assert np.array_equal(np.asarray(a), b.numpy()), k
+
+
 def test_pyramid_numpy_round_trip():
     occ, _, _ = _random_scene()
     ref = j_build(jnp.asarray(occ))
